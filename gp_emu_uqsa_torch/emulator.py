@@ -1,0 +1,284 @@
+"""Emulator facade, serving half (port of `gp_emu_uqsa_tpu.emulator`).
+
+    emul = load_emulator("ckpt", device="cuda", dtype=torch.float32)
+    mean, var = emul.predict(x_new)
+    diag = emul.validate_against(0)
+
+The training half (`optimize`, `setup`, `train`, `final_build`,
+`train_bayes`, `predict_bayes`) comes with the training slice; a trained
+emulator reaches the port through a checkpoint (`utils.checkpoint`) or
+through `params_from_numpy` and `gp.fit`.
+
+Serving tiers (`predict(serve=...)`), named after what they run:
+
+  "fused"  the hand-written CUDA kernels K3 + K4 (`ops.serve`); JAX's
+           "pallas". On the CPU it runs their plain versions: the port's
+           counterpart of interpret mode and its CPU equivalence hook.
+  "gemm"   the cached Predictor through K2 and plain products
+           (`gp.predict_batched`); JAX's "xla".
+  "auto"   "fused" on a CUDA device for fp32 emulators with m >= 1024,
+           else "gemm".
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gp_emu_uqsa_torch import gp
+from gp_emu_uqsa_torch._device import resolve_device
+from gp_emu_uqsa_torch.basis import BasisSpec, basis_matrix, basis_strings, linear_basis
+from gp_emu_uqsa_torch.configs import Beliefs, Config
+from gp_emu_uqsa_torch.dataio import DataSplits, make_splits
+from gp_emu_uqsa_torch.inference import MLEConfig
+from gp_emu_uqsa_torch.kernels import GPParams
+from gp_emu_uqsa_torch.ops.kernel_matrix import MAX_D
+from gp_emu_uqsa_torch.ops.serve import serve_meanvar_batched
+
+_MIN_NUGGET = 1e-10
+_FUSED_AUTO_MIN_M = 1024   # smaller query batches stay on the gemm tier
+_FUSED_BATCH = 131072      # query chunk of the fused tier
+SERVE_TIERS = ("auto", "fused", "gemm")
+
+
+@dataclasses.dataclass
+class Emulator:
+    """A (possibly trained) GP emulator plus its provenance.
+
+    `device=None` means the CUDA card (raises without one); pass
+    device="cpu" for the plain PyTorch path. `dtype` is the working dtype
+    (float64 by default, as in the JAX package); float32 on a CUDA device
+    is the configuration that takes the kernels.
+    """
+
+    splits: DataSplits
+    spec: BasisSpec
+    active: Optional[list[int]]            # active input columns (None = all)
+    mle_config: MLEConfig
+    beliefs: Optional[Beliefs] = None
+    config: Optional[Config] = None
+    params: Optional[GPParams] = None
+    state: Optional[gp.FitState] = None
+    n_folded: int = 0                      # V sets folded into training so far
+    fixed_beta: Optional[np.ndarray] = None  # set when beliefs.fix_mean
+    dtype: torch.dtype = torch.float64
+    seed: int = 0
+    device: Optional[torch.device] = None
+    # serving cache: (FitState, Predictor), rebuilt when the state changes
+    _serve_cache: Optional[tuple] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # training-view cache: key -> (x, y, h) on the device
+    _tv_cache: Optional[tuple] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    # ----- construction ---------------------------------------------------
+
+    @classmethod
+    def from_arrays(
+        cls,
+        x,
+        y,
+        *,
+        basis: Optional[BasisSpec] = None,
+        tv_config=(10, 0, 2),
+        shuffle=True,
+        scale_inputs=True,
+        mode="mucm",
+        kernel="gaussian",
+        tries=8,
+        nugget=_MIN_NUGGET,
+        train_nugget=False,
+        delta_bounds=None,
+        sigma_bounds=None,
+        nugget_bounds=None,
+        dtype=torch.float64,
+        device=None,
+        seed=0,
+    ) -> "Emulator":
+        x = np.asarray(x, dtype=np.float64)
+        if x.ndim == 1:
+            x = x[:, None]
+        d = x.shape[1]
+        splits = make_splits(
+            x, y, tv_config, shuffle=shuffle, scale_inputs=scale_inputs, seed=seed
+        )
+        spec = basis if basis is not None else linear_basis(d)
+        mle = MLEConfig(
+            mode=mode,
+            family=kernel,
+            tries=tries,
+            nugget=max(nugget, _MIN_NUGGET),
+            train_nugget=train_nugget,
+            delta_bounds=delta_bounds,
+            sigma_bounds=sigma_bounds,
+            nugget_bounds=nugget_bounds,
+        )
+        return cls(splits, spec, None, mle, dtype=dtype, seed=seed,
+                   device=device)
+
+    # ----- data views -----------------------------------------------------
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+    def _xy(self, rows):
+        x = self._tensor(self.splits.x_all[rows])
+        y = np.asarray(self.splits.y_all[rows])
+        if self.fixed_beta is not None:
+            hfull = basis_matrix(torch.as_tensor(self.splits.x_all[rows]),
+                                 self.spec).numpy()
+            y = y - hfull @ self.fixed_beta
+            h = torch.zeros((len(y), 0), dtype=self.dtype, device=self.device)
+        else:
+            h = basis_matrix(x, self.spec)
+        return x, self._tensor(y), h
+
+    def train_view(self):
+        """(x, y, h) of the training rows, cached on the device."""
+        key = (self.n_folded, self.splits, self.fixed_beta, self.spec,
+               self.dtype, self.device)
+        cached = self._tv_cache
+        if cached is None or not (
+            cached[0][0] == key[0] and cached[0][1] is key[1]
+            and cached[0][2] is key[2] and cached[0][3] == key[3]
+            and cached[0][4] == key[4] and cached[0][5] == key[5]
+        ):
+            self._tv_cache = (key,
+                              self._xy(self.splits.train_rows(self.n_folded)))
+        return self._tv_cache[1]
+
+    def valid_view(self, k):
+        return self._xy(self.splits.v_rows(k))
+
+    # ----- validation -----------------------------------------------------
+
+    def validate_against(self, k, message=True):
+        """Reference V-set diagnostics for validation set k."""
+        x, y, h = self.train_view()
+        xv, yv, hv = self.valid_view(k)
+        diag = gp.validate(self.state, x, h, xv, hv, yv,
+                           family=self.mle_config.family)
+        if message:
+            se = diag["std_err"].cpu().numpy()
+            print(
+                f"[validate set {k}] n_V={len(yv)} "
+                f"|std err|>2: {(np.abs(se) > 2).sum()}/{len(se)}  "
+                f"Mahalanobis={float(diag['mahalanobis']):.4g} "
+                f"(expect {float(diag['mahalanobis_mean']):.4g} "
+                f"+- {float(diag['mahalanobis_sd']):.4g})"
+            )
+        return diag
+
+    # ----- prediction -----------------------------------------------------
+
+    def _prepare_inputs(self, x_new):
+        """Raw-space inputs -> scaled active-dim tensor + basis matrix.
+
+        Cast to the working dtype first: an integer query array would
+        otherwise truncate the min-max scaling.
+        """
+        x_new = self._tensor(x_new)
+        if x_new.ndim == 1:
+            x_new = x_new[:, None]
+        if self.active is not None:
+            x_new = x_new[:, list(self.active)]
+        if self.splits.minmax is not None:
+            mm = np.asarray(self.splits.minmax, dtype=np.float64)
+            lo = self._tensor(mm[:, 0])
+            span = self._tensor(np.where(mm[:, 1] > mm[:, 0],
+                                         mm[:, 1] - mm[:, 0], 1.0))
+            x_new = (x_new - lo) / span
+        if self.fixed_beta is not None:
+            hs = torch.zeros((len(x_new), 0), dtype=self.dtype,
+                             device=self.device)
+        else:
+            hs = basis_matrix(x_new, self.spec)
+        return x_new, hs
+
+    def _serving(self) -> gp.Predictor:
+        """The serving Predictor (W = L^-1), built once per fit state."""
+        if self._serve_cache is None or self._serve_cache[0] is not self.state:
+            self._serve_cache = (self.state, gp.predictor(self.state))
+        return self._serve_cache[1]
+
+    def _use_fused_serve(self, serve: str, m: int, d: int) -> bool:
+        """Dispatch gate for the fused K3 + K4 tier (JAX `_use_pallas_serve`).
+
+        Needs the gaussian family and d <= 20. "fused" forces it (plain
+        versions on the CPU); "auto" takes it on a CUDA device for fp32
+        emulators with m >= 1024 (an fp64 emulator stays on the exact fp64
+        gemm tier, which the card runs natively).
+        """
+        if serve not in SERVE_TIERS:
+            raise ValueError(f"unknown serve tier {serve!r}; one of {SERVE_TIERS}")
+        if serve == "gemm" or self.mle_config.family != "gaussian":
+            return False
+        if d > MAX_D:
+            return False
+        if serve == "fused":
+            return True
+        return (self.device.type == "cuda" and self.dtype == torch.float32
+                and m >= _FUSED_AUTO_MIN_M)
+
+    def predict(self, x_new, *, full_cov=False, include_nugget=False,
+                serve: str = "auto", quad_precision: str = "high"):
+        """Posterior mean and variance at raw-space inputs x_new.
+
+        The diagonal-variance path takes the fused tier (K3 + K4) or the
+        gemm tier as `_use_fused_serve` decides; full_cov=True takes the
+        exact factor-based path (`gp.predict`), the only one that builds the
+        (m, m) covariance. quad_precision ("high" or "highest") names the
+        fused tier's precision; both run exact fp32 in this port.
+        """
+        if self.state is None:
+            raise RuntimeError("emulator not trained: load a checkpoint or "
+                               "fit a state first")
+        x, y, h = self.train_view()
+        xs, hs = self._prepare_inputs(x_new)
+        m, d = xs.shape
+        if full_cov:
+            mean, var = gp.predict(
+                self.state, x, h, xs, hs, full_cov=True,
+                include_nugget=include_nugget, family=self.mle_config.family,
+            )
+        elif self._use_fused_serve(serve, m, d):
+            mean, var = serve_meanvar_batched(
+                self._serving(), x, xs, hs, batch=_FUSED_BATCH,
+                quad_precision=quad_precision, include_nugget=include_nugget,
+            )
+            mean = mean.to(self.dtype)
+            var = var.to(self.dtype)
+        else:
+            mean, var = gp.predict_batched(
+                self._serving(), x, xs, hs, include_nugget=include_nugget,
+                family=self.mle_config.family)
+        if self.fixed_beta is not None:
+            hraw = basis_matrix(xs, self.spec)
+            mean = mean + hraw @ self._tensor(self.fixed_beta)
+        return mean, var
+
+    # ----- checkpoint export ----------------------------------------------
+
+    def updated_beliefs(self) -> Beliefs:
+        """Beliefs object carrying the trained hyperparameters."""
+        b = self.beliefs if self.beliefs is not None else Beliefs()
+        out = dataclasses.replace(b) if dataclasses.is_dataclass(b) else Beliefs()
+        if self.params is not None:
+            out.delta = [float(v) for v in
+                         torch.exp(self.params.log_delta).cpu().numpy()]
+            out.nugget = float(torch.exp(self.params.log_nugget))
+            if self.state is not None:
+                out.sigma = float(np.sqrt(float(self.state.sigma2)))
+                if self.fixed_beta is None:
+                    out.beta = [float(v) for v in self.state.beta.cpu().numpy()]
+        out.mucm = self.mle_config.mode == "mucm"
+        out.fix_nugget = not self.mle_config.train_nugget
+        out.input_minmax = self.splits.minmax
+        out.basis_str, out.basis_inf = basis_strings(self.spec)
+        out.kernel = f"{self.mle_config.family}()"
+        return out

@@ -1,0 +1,204 @@
+"""Correlation kernels for GP emulation (port of `gp_emu_uqsa_tpu.kernels`).
+
+Reference parity: GP_emu_UQSA's Gaussian (squared-exponential) correlation
+(reference `_emulatorkernels.py`, SURVEY.md S3) is
+
+    A_ij = exp( - sum_l ((x_il - x_jl) / delta_l)^2 ) + nu * 1[i==j]
+
+i.e. NO factor 1/2 in the exponent (MUCM convention). sigma^2 scales the
+correlation matrix into a covariance. Hyperparameters travel in log space.
+
+The general path builds the distance from the ||x||^2 + ||x'||^2 - 2 x.x'
+expansion on delta-scaled inputs, as the JAX package does. On a CUDA
+device the gaussian family takes the hand-written kernels of
+`ops.kernel_matrix` inside the same gates as the JAX package's Pallas
+builds (`_fast_self_ok`, `_fast_cross_ok`), with "the tensor is on a CUDA
+device" in place of "the backend is a TPU". The analytic adjoints of the
+fast builds come with the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gp_emu_uqsa_torch._device import resolve_device
+from gp_emu_uqsa_torch.ops.kernel_matrix import (
+    MAX_D, gaussian_corr_fused, gaussian_corr_self_fused,
+)
+from gp_emu_uqsa_torch.ops.precision import fp32_exact
+
+
+class GPParams(NamedTuple):
+    """Log-space hyperparameters of the Gaussian-kernel GP.
+
+    Attributes:
+      log_delta: (d_active,) per-dimension correlation lengths, log delta_l.
+      log_sigma2: () log of the scale variance sigma^2 (profiled out by the
+        concentrated/MUCM likelihood, load-bearing in `gp4ml` mode).
+      log_nugget: () log of the nugget nu added to the diagonal.
+    """
+
+    log_delta: torch.Tensor
+    log_sigma2: torch.Tensor
+    log_nugget: torch.Tensor
+
+    @property
+    def delta(self) -> torch.Tensor:
+        return torch.exp(self.log_delta)
+
+    @property
+    def sigma2(self) -> torch.Tensor:
+        return torch.exp(self.log_sigma2)
+
+    @property
+    def nugget(self) -> torch.Tensor:
+        return torch.exp(self.log_nugget)
+
+
+def make_params(delta, sigma2=1.0, nugget=0.0, *, device=None,
+                dtype=torch.float32, min_nugget=1e-12) -> GPParams:
+    """GPParams from natural-space values (a zero nugget is clamped to
+    `min_nugget` so log space stays finite). `device=None` means CUDA."""
+    dev = resolve_device(device)
+    delta = torch.as_tensor(np.asarray(delta), dtype=dtype, device=dev)
+    sigma2 = torch.as_tensor(sigma2, dtype=dtype, device=dev)
+    nugget = torch.clamp(torch.as_tensor(nugget, dtype=dtype, device=dev),
+                         min=min_nugget)
+    return GPParams(torch.log(delta), torch.log(sigma2), torch.log(nugget))
+
+
+def params_from_numpy(log_delta, log_sigma2, log_nugget, *, device=None,
+                      dtype=torch.float64) -> GPParams:
+    """The JAX package's log-space parameters, as numpy arrays, as GPParams.
+
+    This is how trained weights cross from the JAX package (or its
+    checkpoints) to the port. `device=None` means CUDA.
+    """
+    dev = resolve_device(device)
+
+    def conv(v):
+        return torch.as_tensor(np.array(v, dtype=np.float64), dtype=dtype,
+                               device=dev)
+
+    return GPParams(conv(log_delta), conv(log_sigma2), conv(log_nugget))
+
+
+@fp32_exact
+def scaled_sq_dists(x1: torch.Tensor, x2: torch.Tensor,
+                    delta: torch.Tensor) -> torch.Tensor:
+    """sum_l ((x1_il - x2_jl)/delta_l)^2 for all pairs, shape (n1, n2).
+
+    The matmul expansion of the JAX package; `clamp(min=0)` removes the tiny
+    negatives it can produce. The cross product runs in full fp32 (TF32
+    off), as the JAX package pins it to HIGHEST: distances feed exp().
+    """
+    xs1 = x1 / delta
+    xs2 = x2 / delta
+    n1 = torch.sum(xs1 * xs1, dim=-1)[:, None]
+    n2 = torch.sum(xs2 * xs2, dim=-1)[None, :]
+    cross = xs1 @ xs2.T
+    return torch.clamp(n1 + n2 - 2.0 * cross, min=0.0)
+
+
+def _safe_dist(d2: torch.Tensor) -> torch.Tensor:
+    """sqrt(d2) with a zero (not NaN) gradient at d2 == 0 (double where)."""
+    pos = d2 > 0.0
+    safe = torch.where(pos, d2, torch.ones_like(d2))
+    return torch.where(pos, torch.sqrt(safe), torch.zeros_like(d2))
+
+
+def _corr_gaussian(d2: torch.Tensor) -> torch.Tensor:
+    return torch.exp(-d2)
+
+
+def _corr_matern52(d2: torch.Tensor) -> torch.Tensor:
+    s = math.sqrt(5.0) * _safe_dist(d2)
+    return (1.0 + s + (s * s) / 3.0) * torch.exp(-s)
+
+
+def _corr_matern32(d2: torch.Tensor) -> torch.Tensor:
+    s = math.sqrt(3.0) * _safe_dist(d2)
+    return (1.0 + s) * torch.exp(-s)
+
+
+def _corr_exponential(d2: torch.Tensor) -> torch.Tensor:
+    return torch.exp(-_safe_dist(d2))
+
+
+# Correlation families on the delta-scaled squared distance d2. The UQSA
+# analytics have closed forms ONLY for "gaussian".
+CORR_FAMILIES = {
+    "gaussian": _corr_gaussian,
+    "matern52": _corr_matern52,
+    "matern32": _corr_matern32,
+    "exponential": _corr_exponential,
+}
+
+_FAST_SELF_MIN_N = 512       # below this a launch costs about the build
+_FAST_CROSS_MIN_ROWS = 256   # both sides, as the JAX gate requires
+
+
+def _fast_self_ok(x: torch.Tensor) -> bool:
+    return (x.is_cuda and x.ndim == 2 and x.dtype == torch.float32
+            and x.shape[0] >= _FAST_SELF_MIN_N
+            and x.shape[1] <= MAX_D)
+
+
+def _fast_cross_ok(x1: torch.Tensor, x2: torch.Tensor) -> bool:
+    return (x1.is_cuda and x2.is_cuda and x1.ndim == 2 and x2.ndim == 2
+            and x1.dtype == torch.float32 and x2.dtype == torch.float32
+            and x1.shape[0] >= _FAST_CROSS_MIN_ROWS
+            and x2.shape[0] >= _FAST_CROSS_MIN_ROWS
+            and x1.shape[1] == x2.shape[1]
+            and x1.shape[1] <= MAX_D)
+
+
+def corr(x1: torch.Tensor, x2: torch.Tensor, params: GPParams,
+         family: str = "gaussian") -> torch.Tensor:
+    """Cross-correlation matrix c(x1_i, x2_j), no nugget, shape (n1, n2).
+
+    On a CUDA device the gaussian family takes kernel K2
+    (`ops.kernel_matrix.gaussian_corr_fused`) when both sides span at least
+    256 rows, in fp32, with d <= 20.
+    """
+    if family == "gaussian" and _fast_cross_ok(x1, x2):
+        return gaussian_corr_fused(x1, x2, params.delta)
+    try:
+        fn = CORR_FAMILIES[family]
+    except KeyError:
+        raise ValueError(
+            f"unknown kernel family {family!r}; one of {sorted(CORR_FAMILIES)}"
+        ) from None
+    return fn(scaled_sq_dists(x1, x2, params.delta))
+
+
+def corr_self(x: torch.Tensor, params: GPParams,
+              family: str = "gaussian") -> torch.Tensor:
+    """Training correlation matrix A = c(X, X) + nugget*I, symmetrized.
+
+    The general path symmetrizes (A + A^T)/2 so the Cholesky sees an exactly
+    symmetric operand. On a CUDA device the gaussian family in fp32 with
+    n >= 512 and d <= 20 takes kernel K1
+    (`ops.kernel_matrix.gaussian_corr_self_fused`), whose difference-form
+    distance is exactly symmetric already.
+    """
+    if family == "gaussian" and _fast_self_ok(x):
+        return gaussian_corr_self_fused(x, params.delta, params.nugget)
+    a = corr(x, x, params, family)
+    a = 0.5 * (a + a.T)
+    n = x.shape[0]
+    return a + params.nugget * torch.eye(n, dtype=a.dtype, device=a.device)
+
+
+def gaussian_corr(x1: torch.Tensor, x2: torch.Tensor,
+                  params: GPParams) -> torch.Tensor:
+    """Gaussian-family cross-correlation (the reference's only kernel)."""
+    return torch.exp(-scaled_sq_dists(x1, x2, params.delta))
+
+
+def gaussian_corr_self(x: torch.Tensor, params: GPParams) -> torch.Tensor:
+    """Gaussian-family training matrix A = c(X, X) + nugget*I, symmetrized."""
+    return corr_self(x, params, "gaussian")

@@ -1,0 +1,243 @@
+"""K3/K4: fused serving kernels (CUDA for Hopper) and the fused serving tier.
+
+Port of `gp_emu_uqsa_tpu.ops.serve`. The posterior mean and variance at m
+queries need the (m, n) cross-correlation block c* = exp(-D2(X*, X)) only
+through two contractions, so neither kernel writes it to device memory:
+
+* K3 `corr_matvec` replaces `corr_matvec_pallas` (`gp_emu_uqsa_tpu/ops/
+  serve.py:103`): c* @ rhs, with rhs = [e | A^-1 H] giving the mean's c* e
+  and the R-term's c* A^-1 H in one pass (`csrc/corr_matvec.cu`);
+* K4 `corr_quad` replaces `corr_quad_pallas` (`:371`): the whitened
+  variance quadratic |W c*|^2, W = L^-1 lower-triangular
+  (`csrc/corr_quad.cu`).
+
+K3 is bound by its m n (3d + 1 + 2r) operations and K4 by the m n (n + 1)
+operations of the triangular product, both on the fp32 CUDA cores; each
+builds correlation tiles in shared memory and contracts them at once (design
+notes in the sources). Both TPU precision tiers ("highest", "high") run the
+same exact fp32 arithmetic in this port: "high" only grants an error bound
+(<= 4.7e-5 absolute on quad, docs/numerics.md). A 3-pass tensor-core path
+for "high" is later work.
+
+Each kernel has a plain PyTorch version here (`*_plain`). The wrapper runs
+it only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+`launches` on each wrapper counts kernel launches.
+
+The serving functions keep the JAX names without the `_pallas` suffix:
+`serve_mean` (`serve_mean_pallas`), `serve_meanvar` (`serve_meanvar_pallas`)
+and their `_batched` forms, which loop over query chunks on the host where
+the JAX package runs `lax.map` (no padding of the last chunk).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gp_emu_uqsa_torch import gp
+from gp_emu_uqsa_torch.ops import _build
+from gp_emu_uqsa_torch.ops.kernel_matrix import MAX_D, _check_cuda, sq_exp_plain
+from gp_emu_uqsa_torch.ops.precision import fp32_exact
+
+MAX_RHS = 128
+_PRECISIONS = ("highest", "high")
+_MATVEC_SOURCE = "corr_matvec.cu"
+_MATVEC_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (
+    ctypes.c_void_p,)
+_QUAD_SOURCE = "corr_quad.cu"
+_QUAD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
+
+
+def _check_precision(name: str, value: str) -> None:
+    if value not in _PRECISIONS:
+        raise ValueError(f"unknown {name} {value!r}; one of {_PRECISIONS}")
+
+
+def _scaled(xstar, x, delta):
+    """fp32 queries and training inputs times 1/delta (the JAX scaling)."""
+    xstar = xstar.to(torch.float32)
+    x = x.to(torch.float32)
+    if xstar.shape[1] != x.shape[1]:
+        raise ValueError(f"feature dims differ: xstar has {xstar.shape[1]}, "
+                         f"x has {x.shape[1]}")
+    inv = 1.0 / torch.as_tensor(delta, dtype=torch.float32, device=x.device)
+    return (xstar * inv).contiguous(), (x * inv).contiguous()
+
+
+@fp32_exact
+def corr_matvec_plain(xstar, x, delta, rhs) -> torch.Tensor:
+    """Plain version of K3: exp(-D2(xstar/delta, x/delta)) @ rhs in fp32."""
+    xs, xt = _scaled(xstar, x, delta)
+    return sq_exp_plain(xs, xt) @ rhs.to(torch.float32)
+
+
+def corr_matvec(xstar, x, delta, rhs, *,
+                rhs_precision: str = "highest") -> torch.Tensor:
+    """K3: exp(-D2(xstar/delta, x/delta)) @ rhs without the (m, n) block.
+
+    Counterpart of `corr_matvec_pallas`. xstar: (m, d); x: (n, d); delta:
+    (d,); rhs: (n, r) or (n,), r <= 128. Returns (m, r) (or (m,) for a
+    vector rhs) in fp32. Both `rhs_precision` tiers run exact fp32.
+    """
+    _check_precision("rhs_precision", rhs_precision)
+    squeeze = rhs.ndim == 1
+    if squeeze:
+        rhs = rhs[:, None]
+    if rhs.shape[1] > MAX_RHS:
+        raise ValueError(f"rhs width {rhs.shape[1]} > {MAX_RHS}; split into "
+                         "slabs")
+    if rhs.shape[0] != x.shape[0]:
+        raise ValueError(f"rhs has {rhs.shape[0]} rows, x has {x.shape[0]}")
+    if xstar.device.type == "cpu" and x.device.type == "cpu":
+        out = corr_matvec_plain(xstar, x, delta, rhs)
+        return out[:, 0] if squeeze else out
+    xs, xt = _scaled(xstar, x, delta)
+    rhs = rhs.to(torch.float32).contiguous()
+    _check_cuda("corr_matvec", xs, xt, rhs)
+    m, d = xs.shape
+    n, r = rhs.shape
+    out = torch.zeros((m, r), dtype=torch.float32, device=xs.device)
+    if m and n and r:
+        fn = _build.kernel(_MATVEC_SOURCE, "gp_corr_matvec", _MATVEC_ARGTYPES)
+        with torch.cuda.device(xs.device):
+            err = fn(xs.data_ptr(), xt.data_ptr(), rhs.data_ptr(),
+                     out.data_ptr(), m, n, d, r, _build.stream_ptr(xs))
+        _build.check(err, _MATVEC_SOURCE, "corr_matvec")
+        corr_matvec.launches += 1
+    return out[:, 0] if squeeze else out
+
+
+corr_matvec.launches = 0
+
+
+@fp32_exact
+def corr_quad_plain(xstar, x, delta, w_tri) -> torch.Tensor:
+    """Plain version of K4: sum_k (sum_{j<=k} c(x*, x_j) W_kj)^2 in fp32."""
+    xs, xt = _scaled(xstar, x, delta)
+    u = sq_exp_plain(xs, xt) @ torch.tril(w_tri.to(torch.float32)).T
+    return torch.sum(u * u, dim=1)
+
+
+def corr_quad(xstar, x, delta, w_tri, *,
+              quad_precision: str = "highest") -> torch.Tensor:
+    """K4: quad(x*) = |W c(x*)|^2 = t(x*)^T A^-1 t(x*), (m,) fp32.
+
+    Counterpart of `corr_quad_pallas`. xstar: (m, d); x: (n, d), d <= 20;
+    delta: (d,); w_tri: (n, n) with W = L^-1 in its lower triangle (the
+    strict upper triangle is never read). Both `quad_precision` tiers run
+    exact fp32.
+    """
+    _check_precision("quad_precision", quad_precision)
+    n = x.shape[0]
+    if w_tri.shape != (n, n):
+        raise ValueError(f"w_tri has shape {tuple(w_tri.shape)}, expected "
+                         f"({n}, {n})")
+    if xstar.shape[1] > MAX_D:
+        raise ValueError(f"d={xstar.shape[1]} exceeds {MAX_D}; use "
+                         "gp.predict_fast")
+    if xstar.device.type == "cpu" and x.device.type == "cpu":
+        return corr_quad_plain(xstar, x, delta, w_tri)
+    xs, xt = _scaled(xstar, x, delta)
+    w = w_tri.to(torch.float32).contiguous()
+    _check_cuda("corr_quad", xs, xt, w)
+    m, d = xs.shape
+    quad = torch.zeros((m,), dtype=torch.float32, device=xs.device)
+    if m and n:
+        fn = _build.kernel(_QUAD_SOURCE, "gp_corr_quad", _QUAD_ARGTYPES)
+        with torch.cuda.device(xs.device):
+            err = fn(xs.data_ptr(), xt.data_ptr(), w.data_ptr(),
+                     quad.data_ptr(), m, n, d, _build.stream_ptr(xs))
+        _build.check(err, _QUAD_SOURCE, "corr_quad")
+        corr_quad.launches += 1
+    return quad
+
+
+corr_quad.launches = 0
+
+
+@fp32_exact
+def serve_mean(pred, x, xstar, hstar, *,
+               rhs_precision: str = "highest") -> torch.Tensor:
+    """Posterior mean at xstar through K3 (`serve_mean_pallas`).
+
+    `pred` is a gp.Predictor; equal to gp.predict_fast(...)[0] without the
+    (m, n) intermediate.
+    """
+    ce = corr_matvec(xstar, x, torch.exp(pred.params.log_delta), pred.e,
+                     rhs_precision=rhs_precision)
+    return hstar.to(torch.float32) @ pred.beta.to(torch.float32) + ce
+
+
+def _chunks(m: int, batch: int):
+    return [(s, min(s + batch, m)) for s in range(0, m, batch)]
+
+
+def serve_mean_batched(pred, x, xstar, hstar, *, batch: int = 131072,
+                       rhs_precision: str = "highest") -> torch.Tensor:
+    """`serve_mean` over query chunks of `batch` rows (`serve_mean_pallas_batched`)."""
+    parts = [serve_mean(pred, x, xstar[s:e], hstar[s:e],
+                        rhs_precision=rhs_precision)
+             for s, e in _chunks(xstar.shape[0], batch)]
+    if not parts:
+        return torch.zeros((0,), dtype=torch.float32, device=xstar.device)
+    return torch.cat(parts)
+
+
+def serve_predictor(state):
+    """Serving state from a gp.FitState: gp.predictor, which carries W = L^-1."""
+    return gp.predictor(state)
+
+
+@fp32_exact
+def serve_meanvar(spred, x, xstar, hstar, *,
+                  rhs_precision: str = "highest",
+                  quad_precision: str = "highest",
+                  include_nugget: bool = False):
+    """Posterior mean AND variance at xstar via K3 then K4 (`serve_meanvar_pallas`).
+
+    Pass 1 (K3): c @ [e | A^-1 H], the mean contraction and the R-term cross
+    product in one rhs slab. Pass 2 (K4): |W c|^2, the A^-1 quadratic in
+    whitened triangular form. Equal to gp.predict_fast up to fp32 rounding;
+    computed in fp32.
+    """
+    delta = torch.exp(spred.params.log_delta)
+    rhs = torch.cat([spred.e[:, None], spred.ainv_h], dim=1).to(torch.float32)
+    slab = corr_matvec(xstar, x, delta, rhs, rhs_precision=rhs_precision)
+    ce = slab[:, 0]
+    c_ainv_h = slab[:, 1:]
+    hstar = hstar.to(torch.float32)
+    mean = hstar @ spred.beta.to(torch.float32) + ce
+    quad_t = corr_quad(xstar, x, delta, spred.linv,
+                       quad_precision=quad_precision)
+    r = hstar - c_ainv_h
+    rw = r @ spred.w_chol.to(torch.float32)
+    quad_r = torch.sum(rw * rw, dim=1)
+    prior = 1.0 + (spred.params.nugget.to(torch.float32) if include_nugget
+                   else 0.0)
+    var = spred.sigma2.to(torch.float32) * torch.clamp(
+        prior - quad_t + quad_r, min=0.0)
+    return mean, var
+
+
+def serve_meanvar_batched(spred, x, xstar, hstar, *, batch: int = 65536,
+                          rhs_precision: str = "highest",
+                          quad_precision: str = "highest",
+                          include_nugget: bool = False):
+    """`serve_meanvar` over query chunks (`serve_meanvar_pallas_batched`).
+
+    A host loop over chunks of `batch` rows bounds the per-chunk work and
+    memory regardless of m.
+    """
+    means, variances = [], []
+    for s, e in _chunks(xstar.shape[0], batch):
+        mean, var = serve_meanvar(spred, x, xstar[s:e], hstar[s:e],
+                                  rhs_precision=rhs_precision,
+                                  quad_precision=quad_precision,
+                                  include_nugget=include_nugget)
+        means.append(mean)
+        variances.append(var)
+    if not means:
+        empty = torch.zeros((0,), dtype=torch.float32, device=xstar.device)
+        return empty, empty
+    return torch.cat(means), torch.cat(variances)

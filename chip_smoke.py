@@ -12,13 +12,18 @@ each of which fails the run with a non-zero exit:
 2. Hold each kernel (K1-K4) against its plain PyTorch version on the card at
    the serving path's shapes, with the tolerances of
    tests/test_pallas_kernels.py; time kernel and plain version (CUDA events,
-   median) and compute the bound from the same shapes.
+   median) and compute the bound from the same shapes. K4 is held and timed
+   per precision tier ("highest": exact fp32 on the CUDA cores; "high":
+   3xTF32 on the tensor cores, also held against its own arithmetic in
+   plain PyTorch and against an fp64 evaluation of the same W and c), and
+   timed beside cuBLAS doing the same contraction as one fp32 product.
 3. Serve at full width (BASELINE config 5 on one card, the data of
    bench.py::_problem: seed 0, d=8, delta 0.8, nugget 1e-4, linear basis,
    fp32): save a trained emulator with n=16384 training rows and one
    256-row V-set, `load_emulator` it on the card (refit: K1, Cholesky,
    jitter ladder), answer requests through `Emulator.predict` (m=1000 on
-   the gemm tier, m=65536 twice on the fused tier, full_cov at m=256) and
+   the gemm tier, m=65536 twice on the fused tier with K4 "high", m=4096 on
+   the fused tier with K4 "highest", full_cov at m=256) and
    `validate_against(0)`, with every launch counter read around that run.
    Check the results, the fused tier against the gemm tier, and a small
    fp32 card run against the fp64 CPU path.
@@ -45,6 +50,7 @@ from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import cholesky as chol
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
+from gp_emu_uqsa_torch.ops.precision import fp32_exact_matmul
 
 N_TRAIN = 16384          # training rows (BASELINE config 5)
 N_VALID = 256            # one V-set: tv_config (65, 64, 1) over 16640 rows
@@ -59,12 +65,16 @@ DELTA = 0.8
 NUGGET = 1e-4
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# HBM bytes/s, fp32 FLOP/s outside the tensor cores.
+# HBM bytes/s, fp32 FLOP/s outside the tensor cores, TF32 tensor-core FLOP/s
+# (half the data sheets' figure with sparsity).
 _PEAKS = {
-    "PCIe": (2.0e12, 51e12),
-    "NVL": (3.9e12, 60e12),
-    "SXM": (3.35e12, 67e12),
+    "PCIe": (2.0e12, 51e12, 378e12),
+    "NVL": (3.9e12, 60e12, 417.5e12),
+    "SXM": (3.35e12, 67e12, 495e12),
 }
+# K4 "high" against an fp64 evaluation of the same fp32 W and c: the tier's
+# measured budget on quad (docs/numerics.md, bf16x3 tier)
+QUAD_HIGH_FP64_BUDGET = 4.7e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -127,9 +137,12 @@ def check_close(name, got, want, rtol, atol) -> float:
     return max_err
 
 
-def bound(bytes_moved: float, flops: float, peaks):
-    bw, fp32 = peaks
-    t_bytes, t_ops = bytes_moved / bw * 1e3, flops / fp32 * 1e3
+def bound(bytes_moved: float, flops: float, peaks, tf32_flops: float = 0.0):
+    """Least time (ms, what bounds it): bytes over HBM, fp32 operations over
+    the CUDA cores' peak and TF32 operations over the tensor cores' peak."""
+    bw, fp32, tf32 = peaks
+    t_bytes = bytes_moved / bw * 1e3
+    t_ops = max(flops / fp32, tf32_flops / tf32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -137,13 +150,16 @@ def counters():
     return {"K1": km.gaussian_corr_self_fused.launches,
             "K2": km.gaussian_corr_fused.launches,
             "K3": sv.corr_matvec.launches,
-            "K4": sv.corr_quad.launches}
+            "K4 high": sv.corr_quad.tier_launches["high"],
+            "K4 highest": sv.corr_quad.tier_launches["highest"]}
 
 
 def reset_counters():
     for fn in (km.gaussian_corr_self_fused, km.gaussian_corr_fused,
                sv.corr_matvec, sv.corr_quad):
         fn.launches = 0
+    for tier in sv.corr_quad.tier_launches:
+        sv.corr_quad.tier_launches[tier] = 0
 
 
 def phase_kernels(dev, peaks, card):
@@ -169,7 +185,7 @@ def phase_kernels(dev, peaks, card):
     t = time_ms(lambda: km.gaussian_corr_self_fused(x, delta, NUGGET))
     tp = time_ms(lambda: km.gaussian_corr_self_plain(x, delta, NUGGET), reps=3)
     rows["K1"] = (err, t, tp, bound(4.0 * (n * d + n * n),
-                                    n * n * (3.0 * d + 1), peaks))
+                                    n * n * (3.0 * d + 1), peaks), None)
     # W = L^-1 of the same matrix, as the serving predictor builds it
     l, jitter = chol.cholesky_with_jitter(a)
     w = torch.tril(chol.tri_inverse(l))
@@ -185,7 +201,7 @@ def phase_kernels(dev, peaks, card):
     tp = time_ms(lambda: km.gaussian_corr_plain(xv, x, delta))
     mv = xv.shape[0]
     rows["K2"] = (err, t, tp, bound(4.0 * (mv * n + (mv + n) * d),
-                                    mv * n * (3.0 * d + 1), peaks))
+                                    mv * n * (3.0 * d + 1), peaks), None)
 
     # K3: the serving slab, m = 65536, r = 10. rhs ~ N(0,1)/sqrt(n) keeps the
     # outputs O(0.1), as in the n = 300 test whose tolerance this is
@@ -204,26 +220,73 @@ def phase_kernels(dev, peaks, card):
     tp = time_ms(lambda: sv.corr_matvec_plain(xq, x, delta, rhs), reps=3)
     m = M_SERVE
     rows["K3"] = (err, t, tp, bound(4.0 * (m * d + n * d + n * r + m * r),
-                                    m * n * (3.0 * d + 1 + 2 * r), peaks))
+                                    m * n * (3.0 * d + 1 + 2 * r), peaks),
+                  None)
 
-    # K4: the variance quadratic against W = L^-1, checked at m = 4096 in
-    # both tiers, timed at the serving request m = 65536
+    # K4: the variance quadratic against W = L^-1, both tiers checked at
+    # m = 4096 and timed at the serving request m = 65536
     xc = xq[:M_QUAD_CHECK]
     want = sv.corr_quad_plain(xc, x, delta, w)
-    errs = {}
+    errs, got = {}, {}
     for tier, rtol, atol in (("highest", 5e-4, 5e-5), ("high", 1e-3, 1e-4)):
-        got = sv.corr_quad(xc, x, delta, w, quad_precision=tier)
+        got[tier] = sv.corr_quad(xc, x, delta, w, quad_precision=tier)
         torch.cuda.synchronize()
-        errs[tier] = check_close(f"K4 corr_quad ({tier})", got, want, rtol, atol)
-    t = time_ms(lambda: sv.corr_quad(xq, x, delta, w, quad_precision="high"),
-                reps=3)
-    tp = time_ms(lambda: sv.corr_quad_plain(xq, x, delta, w), reps=3)
-    rows["K4"] = (max(errs.values()), t, tp,
-                  bound(4.0 * (m * d + n * d + n * (n + 1) / 2 + m),
-                        m * n * (3.0 * d + 1) + m * n * (n + 1.0), peaks))
-    for name, (_, t, tp, (b, by)) in rows.items():
+        errs[tier] = check_close(f"K4 corr_quad ({tier})", got[tier], want,
+                                 rtol, atol)
+    # "high" against its own arithmetic (the same TF32 hi/lo operands, bit
+    # for bit): only the order and rounding of the fp32 sums differ, so it
+    # gets the budget of two fp32 summations, the "highest" tier's
+    check_close("K4 corr_quad (high) vs corr_quad_tf32x3_plain", got["high"],
+                sv.corr_quad_tf32x3_plain(xc, x, delta, w), 5e-4, 5e-5)
+    # ... and against fp64 arithmetic on the same fp32 W and c (the fp32
+    # correlation of the plain version, which the kernels rebuild to an ulp)
+    c64 = km.sq_exp_plain(*sv._scaled(xc, x, delta)).double()
+    u64 = c64 @ torch.tril(w.double()).T
+    del c64
+    q64 = torch.sum(u64 * u64, dim=1)
+    del u64
+    e64 = {}
+    for tier in ("highest", "high"):
+        e64[tier] = float((got[tier].double() - q64).abs().max())
+        print(f"  K4 corr_quad ({tier}) vs fp64 of the same W and c: max abs "
+              f"{e64[tier]:.3e} (|quad| max {float(q64.abs().max()):.3e})")
+    if e64["high"] > QUAD_HIGH_FP64_BUDGET:
+        raise SmokeFailure(f"K4 high: {e64['high']:.3e} from fp64 exceeds "
+                           f"{QUAD_HIGH_FP64_BUDGET:g}")
+    # the strict upper triangle is never read
+    w_dirty = w + torch.triu(torch.randn_like(w), 1)
+    for tier in ("highest", "high"):
+        if not torch.equal(sv.corr_quad(xc, x, delta, w_dirty,
+                                        quad_precision=tier), got[tier]):
+            raise SmokeFailure(f"K4 {tier}: a dirty upper triangle changed "
+                               "the result")
+    print("  K4 corr_quad (both tiers): dirty upper triangle gives an "
+          "identical result")
+    del w_dirty
+    m = M_SERVE
+    k4_bytes = 4.0 * (m * d + n * d + n * (n + 1) / 2 + m)
+    rebuild_ops = m * n * (3.0 * d + 1)
+    tri_ops = m * n * (n + 1.0)
+    t_high = time_ms(lambda: sv.corr_quad(xq, x, delta, w,
+                                          quad_precision="high"), reps=3)
+    # the one-second calls: one warm-up and one timed run each
+    t_highest = time_ms(lambda: sv.corr_quad(xq, x, delta, w,
+                                             quad_precision="highest"), reps=1)
+    tp = time_ms(lambda: sv.corr_quad_plain(xq, x, delta, w), reps=1)
+    # library yardstick, never called by the port: cuBLAS doing the whole
+    # square contraction c @ W^T in fp32 (TF32 off) on a prebuilt c
+    c = km.gaussian_corr_fused(xq, x, delta)
+    with fp32_exact_matmul():
+        t_lib = time_ms(lambda: torch.matmul(c, w.T), reps=1)
+    del c
+    rows["K4 high"] = (errs["high"], t_high, tp,
+                       bound(k4_bytes, rebuild_ops, peaks, 3.0 * tri_ops), t_lib)
+    rows["K4 highest"] = (errs["highest"], t_highest, tp,
+                          bound(k4_bytes, rebuild_ops + tri_ops, peaks), t_lib)
+    for name, (_, t, tp, (b, by), lib) in rows.items():
+        extra = "" if lib is None else f", cuBLAS fp32 product {lib:.4f} ms"
         print(f"  {name}: {t:.4f} ms (plain {tp:.4f} ms, bound {b:.4f} ms by "
-              f"{by}) on {card}")
+              f"{by}{extra}) on {card}")
     del w, xq, x, xv
     torch.cuda.empty_cache()
     return rows
@@ -258,6 +321,8 @@ def phase_serve(dev, card):
     mean_f, var_f = served.predict(xq)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    # the exact fp32 K4 body through the same entry point
+    _, var_h = served.predict(xq[:M_QUAD_CHECK], quad_precision="highest")
     mean_c, cov = served.predict(xq[:M_COV], full_cov=True)
     diag = served.validate_against(0)
     torch.cuda.synchronize()
@@ -268,6 +333,7 @@ def phase_serve(dev, card):
 
     for name, v in (("mean_gemm", mean_g), ("var_gemm", var_g),
                     ("mean_fused", mean_f), ("var_fused", var_f),
+                    ("var_fused_highest", var_h),
                     ("mean_cov", mean_c), ("cov", cov),
                     ("mahalanobis", diag["mahalanobis"]),
                     ("std_err", diag["std_err"])):
@@ -293,6 +359,10 @@ def phase_serve(dev, card):
                 2e-3, 1e-4 * s2)
     check_close("gemm m=1000 vs fused", mean_g, mean_f[:M_GEMM],
                 1e-4, 1e-4 * max(1.0, s2))
+    # K4 "high" vs "highest" in the served variance: each tier's quad within
+    # the 4.7e-5 budget of fp64, times sigma2
+    check_close("fused var, K4 high vs highest", var_f[:M_QUAD_CHECK], var_h,
+                0.0, 2 * QUAD_HIGH_FP64_BUDGET * s2)
     # each tier's mean against an fp64 evaluation of the same fp32 state
     # (c e summed in fp64): which side of the gap is summation error
     xs, hs = served._prepare_inputs(xq[:M_COMPARE])
@@ -358,14 +428,15 @@ def main() -> int:
     print(f"[phase 1] card: {card}; {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; bound peaks: "
           f"H100 {peak_name} {peaks[0] / 1e12:g} TB/s, {peaks[1] / 1e12:g} "
-          "TFLOP/s fp32")
+          f"TFLOP/s fp32, {peaks[2] / 1e12:g} TFLOP/s TF32")
     t0 = time.perf_counter()
     paths = _build.build()
     print(f"  built {len(paths)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
     for src, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error",
+                                       "arning")):
                 print(f"  {src}: {line.strip()}")
 
     rows = phase_kernels(dev, peaks, card)
@@ -379,16 +450,20 @@ def main() -> int:
                "gp_emu_uqsa_tpu/ops/kernel_matrix.py:122"),
         "K3": ("corr_matvec", "gp_emu_uqsa_torch/csrc/corr_matvec.cu",
                "gp_emu_uqsa_tpu/ops/serve.py:103"),
-        "K4": ("corr_quad", "gp_emu_uqsa_torch/csrc/corr_quad.cu",
-               "gp_emu_uqsa_tpu/ops/serve.py:371"),
+        "K4 high": ("corr_quad (high, 3xTF32 wgmma)",
+                    "gp_emu_uqsa_torch/csrc/corr_quad.cu",
+                    "gp_emu_uqsa_tpu/ops/serve.py:371"),
+        "K4 highest": ("corr_quad (highest, fp32)",
+                       "gp_emu_uqsa_torch/csrc/corr_quad.cu",
+                       "gp_emu_uqsa_tpu/ops/serve.py:371"),
     }
     kernels = []
     for key, (name, source, replaces) in where.items():
-        err, t, tp, (b, by) = rows[key]
+        err, t, tp, (b, by), lib = rows[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": err, "ms": t, "plain_ms": tp,
-                        "bound_ms": b, "bound_by": by, "library_ms": None})
+                        "bound_ms": b, "bound_by": by, "library_ms": lib})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

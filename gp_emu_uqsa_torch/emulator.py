@@ -232,8 +232,10 @@ class Emulator:
         The diagonal-variance path takes the fused tier (K3 + K4) or the
         gemm tier as `_use_fused_serve` decides; full_cov=True takes the
         exact factor-based path (`gp.predict`), the only one that builds the
-        (m, m) covariance. quad_precision ("high" or "highest") names the
-        fused tier's precision; both run exact fp32 in this port.
+        (m, m) covariance. quad_precision names the fused tier's K4 body on
+        the card: "high" (default) is 3xTF32 on the tensor cores, within
+        4.7e-5 absolute on the quadratic; "highest" is exact fp32. On the
+        CPU both run the fp32 plain version.
         """
         if self.state is None:
             raise RuntimeError("emulator not trained: load a checkpoint or "

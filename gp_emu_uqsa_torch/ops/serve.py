@@ -11,13 +11,17 @@ through two contractions, so neither kernel writes it to device memory:
   variance quadratic |W c*|^2, W = L^-1 lower-triangular
   (`csrc/corr_quad.cu`).
 
-K3 is bound by its m n (3d + 1 + 2r) operations and K4 by the m n (n + 1)
-operations of the triangular product, both on the fp32 CUDA cores; each
-builds correlation tiles in shared memory and contracts them at once (design
-notes in the sources). Both TPU precision tiers ("highest", "high") run the
-same exact fp32 arithmetic in this port: "high" only grants an error bound
-(<= 4.7e-5 absolute on quad, docs/numerics.md). A 3-pass tensor-core path
-for "high" is later work.
+K3 is bound by its m n (3d + 1 + 2r) fp32 operations on the CUDA cores. K4
+has one body per TPU precision tier: "highest" runs the m n (n + 1)
+operations of the triangular product in exact fp32 on the CUDA cores, and
+"high" (what `Emulator.predict` serves by default) runs them three times as
+3xTF32 on the tensor cores (`wgmma`): W and c split into TF32 hi and lo
+parts, c_hi W_hi + c_hi W_lo + c_lo W_hi in fp32, within the tier's
+<= 4.7e-5 absolute budget on quad (docs/numerics.md). Each kernel rebuilds
+its correlation tiles on chip and contracts them at once (design notes in
+the sources). `corr_quad_tf32x3_plain` is the "high" body's arithmetic in
+plain PyTorch, for the tests and the card check only; on the CPU both tiers
+take the fp32 plain version.
 
 Each kernel has a plain PyTorch version here (`*_plain`). The wrapper runs
 it only for CPU tensors; for CUDA tensors it launches the kernel or raises.
@@ -46,6 +50,8 @@ _MATVEC_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (
     ctypes.c_void_p,)
 _QUAD_SOURCE = "corr_quad.cu"
 _QUAD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
+_QUAD_TF32X3_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
     ctypes.c_void_p,)
 
 
@@ -119,14 +125,65 @@ def corr_quad_plain(xstar, x, delta, w_tri) -> torch.Tensor:
     return torch.sum(u * u, dim=1)
 
 
+def tf32_split(x: torch.Tensor):
+    """fp32 x -> (hi, lo), hi = tf32(x) and lo = tf32(x - hi), both fp32.
+
+    TF32 rounding to nearest, ties away from zero (`cvt.rna.tf32.f32` on
+    finite inputs) on the int32 view: add half of TF32's last place, then
+    clear the 13 mantissa bits the tensor cores ignore. x - hi is exact in
+    fp32, so hi + lo is x to about 2^-22 relative.
+    """
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@fp32_exact
+def corr_quad_tf32x3_plain(xstar, x, delta, w_tri) -> torch.Tensor:
+    """The "high" body's arithmetic in plain PyTorch: 3xTF32, lo*lo dropped.
+
+    c and W are split exactly as the kernel splits them (`tf32_split`) and
+    the three products c_hi W_hi + c_hi W_lo + c_lo W_hi are summed in fp32;
+    W's strict upper triangle is zeroed first. For the tests and the card
+    check; the wrapper never calls it.
+    """
+    xs, xt = _scaled(xstar, x, delta)
+    c_hi, c_lo = tf32_split(sq_exp_plain(xs, xt))
+    w_hi, w_lo = tf32_split(torch.tril(w_tri.to(torch.float32)))
+    u = c_hi @ w_hi.T + c_hi @ w_lo.T + c_lo @ w_hi.T
+    return torch.sum(u * u, dim=1)
+
+
+def _launch_quad_tf32x3(xs, xt, w, quad):
+    """csrc/corr_quad.cu::gp_corr_quad_tf32x3 (the "high" body)."""
+    m, d = xs.shape
+    n = xt.shape[0]
+    ld = -(-n // 4) * 4            # TMA row strides are multiples of 16 bytes
+    xt_t = torch.zeros((d, ld), dtype=torch.float32, device=xs.device)
+    xt_t[:, :n] = xt.T
+    w_split = torch.empty((2, n, ld), dtype=torch.float32, device=xs.device)
+    fn = _build.kernel(_QUAD_SOURCE, "gp_corr_quad_tf32x3",
+                       _QUAD_TF32X3_ARGTYPES)
+    with torch.cuda.device(xs.device):
+        return fn(xs.data_ptr(), xt_t.data_ptr(), w.data_ptr(),
+                  w_split.data_ptr(), quad.data_ptr(), m, n, d, ld,
+                  _build.stream_ptr(xs))
+
+
 def corr_quad(xstar, x, delta, w_tri, *,
               quad_precision: str = "highest") -> torch.Tensor:
     """K4: quad(x*) = |W c(x*)|^2 = t(x*)^T A^-1 t(x*), (m,) fp32.
 
     Counterpart of `corr_quad_pallas`. xstar: (m, d); x: (n, d), d <= 20;
     delta: (d,); w_tri: (n, n) with W = L^-1 in its lower triangle (the
-    strict upper triangle is never read). Both `quad_precision` tiers run
-    exact fp32.
+    strict upper triangle is never read). On the card "highest" runs the
+    exact fp32 body and "high" the 3xTF32 tensor-core body; on the CPU both
+    take the fp32 plain version. `launches` counts both bodies,
+    `tier_launches` each.
     """
     _check_precision("quad_precision", quad_precision)
     n = x.shape[0]
@@ -144,16 +201,21 @@ def corr_quad(xstar, x, delta, w_tri, *,
     m, d = xs.shape
     quad = torch.zeros((m,), dtype=torch.float32, device=xs.device)
     if m and n:
-        fn = _build.kernel(_QUAD_SOURCE, "gp_corr_quad", _QUAD_ARGTYPES)
-        with torch.cuda.device(xs.device):
-            err = fn(xs.data_ptr(), xt.data_ptr(), w.data_ptr(),
-                     quad.data_ptr(), m, n, d, _build.stream_ptr(xs))
-        _build.check(err, _QUAD_SOURCE, "corr_quad")
+        if quad_precision == "high":
+            err = _launch_quad_tf32x3(xs, xt, w, quad)
+        else:
+            fn = _build.kernel(_QUAD_SOURCE, "gp_corr_quad", _QUAD_ARGTYPES)
+            with torch.cuda.device(xs.device):
+                err = fn(xs.data_ptr(), xt.data_ptr(), w.data_ptr(),
+                         quad.data_ptr(), m, n, d, _build.stream_ptr(xs))
+        _build.check(err, _QUAD_SOURCE, f"corr_quad ({quad_precision})")
         corr_quad.launches += 1
+        corr_quad.tier_launches[quad_precision] += 1
     return quad
 
 
 corr_quad.launches = 0
+corr_quad.tier_launches = dict.fromkeys(_PRECISIONS, 0)
 
 
 @fp32_exact

@@ -14,19 +14,24 @@ each of which fails the run with a non-zero exit:
    tests/test_pallas_kernels.py; time kernel and plain version (CUDA events,
    median) and compute the bound from the same shapes. K4 is held and timed
    per precision tier ("highest": exact fp32 on the CUDA cores; "high":
-   3xTF32 on the tensor cores, also held against its own arithmetic in
-   plain PyTorch and against an fp64 evaluation of the same W and c), and
-   timed beside cuBLAS doing the same contraction as one fp32 product.
+   3xTF32 on the tensor cores) at the serving request m=65536, against the
+   plain version and an fp64 evaluation of the same W and c; "high" also
+   against its own arithmetic in plain PyTorch on the first and last 4096
+   queries. It is timed beside cuBLAS doing the same contraction as one
+   fp32 product, and the error of the products' split alone is printed for
+   3xTF32 and for the JAX package's bf16x3.
 3. Serve at full width (BASELINE config 5 on one card, the data of
    bench.py::_problem: seed 0, d=8, delta 0.8, nugget 1e-4, linear basis,
    fp32): save a trained emulator with n=16384 training rows and one
    256-row V-set, `load_emulator` it on the card (refit: K1, Cholesky,
    jitter ladder), answer requests through `Emulator.predict` (m=1000 on
-   the gemm tier, m=65536 twice on the fused tier with K4 "high", m=4096 on
-   the fused tier with K4 "highest", full_cov at m=256) and
-   `validate_against(0)`, with every launch counter read around that run.
-   Check the results, the fused tier against the gemm tier, and a small
-   fp32 card run against the fp64 CPU path.
+   the gemm tier, m=65536 twice on the fused tier with K4 "high",
+   full_cov at m=256) and `validate_against(0)`, with every launch counter
+   set to 0 before that run and read after it. Then, in a launch window of
+   its own, one request of m=4096 on the fused tier with K4 "highest".
+   Check the results, the fused tier against the gemm tier, the two K4
+   tiers against each other, and a small fp32 card run against the fp64
+   CPU path.
 4. Print the kernels JSON line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -65,12 +70,12 @@ DELTA = 0.8
 NUGGET = 1e-4
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# HBM bytes/s, fp32 FLOP/s outside the tensor cores, TF32 tensor-core FLOP/s
-# (half the data sheets' figure with sparsity).
+# HBM bytes/s, fp32 FLOP/s outside the tensor cores, TF32 and bf16
+# tensor-core FLOP/s (half the data sheets' figures with sparsity).
 _PEAKS = {
-    "PCIe": (2.0e12, 51e12, 378e12),
-    "NVL": (3.9e12, 60e12, 417.5e12),
-    "SXM": (3.35e12, 67e12, 495e12),
+    "PCIe": (2.0e12, 51e12, 378e12, 756e12),
+    "NVL": (3.9e12, 60e12, 417.5e12, 835.5e12),
+    "SXM": (3.35e12, 67e12, 495e12, 989e12),
 }
 # K4 "high" against an fp64 evaluation of the same fp32 W and c: the tier's
 # measured budget on quad (docs/numerics.md, bf16x3 tier)
@@ -104,8 +109,9 @@ def problem(n: int, d: int = DIM, seed: int = 0):
     return x, y.astype(np.float32)
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of fn() over `reps` runs after one warm-up."""
+def time_ms(fn, reps: int = 5):
+    """(median CUDA-event time of fn() over `reps` runs after one warm-up,
+    the last run's result)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -113,11 +119,11 @@ def time_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    return float(np.median(times))
+    return float(np.median(times)), out
 
 
 def check_close(name, got, want, rtol, atol) -> float:
@@ -140,26 +146,33 @@ def check_close(name, got, want, rtol, atol) -> float:
 def bound(bytes_moved: float, flops: float, peaks, tf32_flops: float = 0.0):
     """Least time (ms, what bounds it): bytes over HBM, fp32 operations over
     the CUDA cores' peak and TF32 operations over the tensor cores' peak."""
-    bw, fp32, tf32 = peaks
+    bw, fp32, tf32 = peaks[:3]
     t_bytes = bytes_moved / bw * 1e3
     t_ops = max(flops / fp32, tf32_flops / tf32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_WRAPPERS = {"K1": km.gaussian_corr_self_fused, "K2": km.gaussian_corr_fused,
+             "K3": sv.corr_matvec, "K4": sv.corr_quad}
+
+
 def counters():
-    return {"K1": km.gaussian_corr_self_fused.launches,
-            "K2": km.gaussian_corr_fused.launches,
-            "K3": sv.corr_matvec.launches,
-            "K4 high": sv.corr_quad.tier_launches["high"],
-            "K4 highest": sv.corr_quad.tier_launches["highest"]}
+    return {key: fn.launches for key, fn in _WRAPPERS.items()}
 
 
 def reset_counters():
-    for fn in (km.gaussian_corr_self_fused, km.gaussian_corr_fused,
-               sv.corr_matvec, sv.corr_quad):
+    for fn in _WRAPPERS.values():
         fn.launches = 0
-    for tier in sv.corr_quad.tier_launches:
-        sv.corr_quad.tier_launches[tier] = 0
+
+
+def bf16x3_split(c, w):
+    """The JAX package's bf16x3 operands (`_quad_kernel_bf16x3` and its
+    caller): c_hi is c truncated to bf16, W_hi is W rounded to nearest
+    even, and each lo part is the remainder rounded to bf16; as fp32."""
+    c_hi = (c.contiguous().view(torch.int32) & -0x10000).view(torch.float32)
+    w_hi = w.bfloat16().float()
+    return ((c_hi, (c - c_hi).bfloat16().float()),
+            (w_hi, (w - w_hi).bfloat16().float()))
 
 
 def phase_kernels(dev, peaks, card):
@@ -182,8 +195,9 @@ def phase_kernels(dev, peaks, card):
                       km.gaussian_corr_self_plain(x, delta, NUGGET), 2e-5, 2e-6)
     if not torch.equal(a, a.T):
         raise SmokeFailure("K1: output is not exactly symmetric")
-    t = time_ms(lambda: km.gaussian_corr_self_fused(x, delta, NUGGET))
-    tp = time_ms(lambda: km.gaussian_corr_self_plain(x, delta, NUGGET), reps=3)
+    t, _ = time_ms(lambda: km.gaussian_corr_self_fused(x, delta, NUGGET))
+    tp, _ = time_ms(lambda: km.gaussian_corr_self_plain(x, delta, NUGGET),
+                    reps=3)
     rows["K1"] = (err, t, tp, bound(4.0 * (n * d + n * n),
                                     n * n * (3.0 * d + 1), peaks), None)
     # W = L^-1 of the same matrix, as the serving predictor builds it
@@ -197,8 +211,8 @@ def phase_kernels(dev, peaks, card):
     torch.cuda.synchronize()
     err = check_close("K2 gaussian_corr", c,
                       km.gaussian_corr_plain(xv, x, delta), 2e-5, 2e-6)
-    t = time_ms(lambda: km.gaussian_corr_fused(xv, x, delta))
-    tp = time_ms(lambda: km.gaussian_corr_plain(xv, x, delta))
+    t, _ = time_ms(lambda: km.gaussian_corr_fused(xv, x, delta))
+    tp, _ = time_ms(lambda: km.gaussian_corr_plain(xv, x, delta))
     mv = xv.shape[0]
     rows["K2"] = (err, t, tp, bound(4.0 * (mv * n + (mv + n) * d),
                                     mv * n * (3.0 * d + 1), peaks), None)
@@ -216,69 +230,100 @@ def phase_kernels(dev, peaks, card):
     check_close("K3 corr_matvec (vector rhs)", vec,
                 sv.corr_matvec_plain(xq[:4096], x, delta, rhs[:, :1])[:, 0],
                 3e-5, 3e-5)
-    t = time_ms(lambda: sv.corr_matvec(xq, x, delta, rhs))
-    tp = time_ms(lambda: sv.corr_matvec_plain(xq, x, delta, rhs), reps=3)
+    t, _ = time_ms(lambda: sv.corr_matvec(xq, x, delta, rhs))
+    tp, _ = time_ms(lambda: sv.corr_matvec_plain(xq, x, delta, rhs), reps=3)
     m = M_SERVE
     rows["K3"] = (err, t, tp, bound(4.0 * (m * d + n * d + n * r + m * r),
                                     m * n * (3.0 * d + 1 + 2 * r), peaks),
                   None)
 
-    # K4: the variance quadratic against W = L^-1, both tiers checked at
-    # m = 4096 and timed at the serving request m = 65536
-    xc = xq[:M_QUAD_CHECK]
-    want = sv.corr_quad_plain(xc, x, delta, w)
-    errs, got = {}, {}
+    # K4: the variance quadratic against W = L^-1. Both tiers are timed at
+    # the serving request m = 65536 (512 blocks of the "high" body: several
+    # waves on the card) and the timed runs' outputs are held against the
+    # plain version and against fp64 arithmetic on the same fp32 W and c.
+    m = M_SERVE
+    got = {}
+    t_high, got["high"] = time_ms(
+        lambda: sv.corr_quad(xq, x, delta, w, quad_precision="high"), reps=3)
+    # the one-second calls: one warm-up and one timed run each
+    t_highest, got["highest"] = time_ms(
+        lambda: sv.corr_quad(xq, x, delta, w, quad_precision="highest"),
+        reps=1)
+    tp, want = time_ms(lambda: sv.corr_quad_plain(xq, x, delta, w), reps=1)
+    errs = {}
     for tier, rtol, atol in (("highest", 5e-4, 5e-5), ("high", 1e-3, 1e-4)):
-        got[tier] = sv.corr_quad(xc, x, delta, w, quad_precision=tier)
-        torch.cuda.synchronize()
-        errs[tier] = check_close(f"K4 corr_quad ({tier})", got[tier], want,
-                                 rtol, atol)
-    # "high" against its own arithmetic (the same TF32 hi/lo operands, bit
-    # for bit): only the order and rounding of the fp32 sums differ, so it
-    # gets the budget of two fp32 summations, the "highest" tier's
-    check_close("K4 corr_quad (high) vs corr_quad_tf32x3_plain", got["high"],
-                sv.corr_quad_tf32x3_plain(xc, x, delta, w), 5e-4, 5e-5)
-    # ... and against fp64 arithmetic on the same fp32 W and c (the fp32
-    # correlation of the plain version, which the kernels rebuild to an ulp)
-    c64 = km.sq_exp_plain(*sv._scaled(xc, x, delta)).double()
-    u64 = c64 @ torch.tril(w.double()).T
-    del c64
-    q64 = torch.sum(u64 * u64, dim=1)
-    del u64
-    e64 = {}
-    for tier in ("highest", "high"):
-        e64[tier] = float((got[tier].double() - q64).abs().max())
-        print(f"  K4 corr_quad ({tier}) vs fp64 of the same W and c: max abs "
-              f"{e64[tier]:.3e} (|quad| max {float(q64.abs().max()):.3e})")
+        errs[tier] = check_close(f"K4 corr_quad ({tier}), m={m}", got[tier],
+                                 want, rtol, atol)
+    # fp64 on the same W and c (the fp32 correlation of the plain version,
+    # which the kernels rebuild to an ulp), over all m in slices
+    w64 = torch.tril(w.double())
+    e64 = dict.fromkeys(got, 0.0)
+    q_max = 0.0
+    for s in range(0, m, M_QUAD_CHECK):
+        sl = slice(s, s + M_QUAD_CHECK)
+        u64 = km.sq_exp_plain(*sv._scaled(xq[sl], x, delta)).double() @ w64.T
+        q64 = torch.sum(u64 * u64, dim=1)
+        del u64
+        q_max = max(q_max, float(q64.abs().max()))
+        for tier in got:
+            e64[tier] = max(e64[tier],
+                            float((got[tier][sl].double() - q64).abs().max()))
+    for tier in got:
+        print(f"  K4 corr_quad ({tier}), m={m}, vs fp64 of the same W and c: "
+              f"max abs {e64[tier]:.3e} (|quad| max {q_max:.3e})")
     if e64["high"] > QUAD_HIGH_FP64_BUDGET:
         raise SmokeFailure(f"K4 high: {e64['high']:.3e} from fp64 exceeds "
                            f"{QUAD_HIGH_FP64_BUDGET:g}")
+    # "high" against its own arithmetic (the same TF32 hi/lo operands, bit
+    # for bit) on the first and the last 4096 queries: only the order and
+    # rounding of the fp32 sums differ, so it gets the budget of two fp32
+    # summations, the "highest" tier's
+    for end, sl in (("first", slice(0, M_QUAD_CHECK)),
+                    ("last", slice(m - M_QUAD_CHECK, m))):
+        check_close(f"K4 corr_quad (high) vs corr_quad_tf32x3_plain, {end} "
+                    f"{M_QUAD_CHECK} queries", got["high"][sl],
+                    sv.corr_quad_tf32x3_plain(xq[sl], x, delta, w), 5e-4, 5e-5)
     # the strict upper triangle is never read
+    xc = xq[:M_QUAD_CHECK]
     w_dirty = w + torch.triu(torch.randn_like(w), 1)
-    for tier in ("highest", "high"):
-        if not torch.equal(sv.corr_quad(xc, x, delta, w_dirty,
-                                        quad_precision=tier), got[tier]):
+    for tier in got:
+        if not torch.equal(
+                sv.corr_quad(xc, x, delta, w_dirty, quad_precision=tier),
+                sv.corr_quad(xc, x, delta, w, quad_precision=tier)):
             raise SmokeFailure(f"K4 {tier}: a dirty upper triangle changed "
                                "the result")
     print("  K4 corr_quad (both tiers): dirty upper triangle gives an "
           "identical result")
     del w_dirty
-    m = M_SERVE
+    # the error of the products' split alone (products summed in fp64, on
+    # the first 4096 queries): this body's 3xTF32 and the JAX package's
+    # bf16x3, against the "high" tier's budget
+    c = km.sq_exp_plain(*sv._scaled(xc, x, delta))
+    u64 = c.double() @ w64.T
+    q64 = torch.sum(u64 * u64, dim=1)
+    w_tri = torch.tril(w)
+    for name, ((c_hi, c_lo), (w_hi, w_lo)) in (
+            ("3xTF32", (sv.tf32_split(c), sv.tf32_split(w_tri))),
+            ("bf16x3", bf16x3_split(c, w_tri))):
+        c_hi, c_lo = c_hi.double(), c_lo.double()
+        w_hi, w_lo = w_hi.double(), w_lo.double()
+        u64 = c_hi @ w_hi.T + c_hi @ w_lo.T + c_lo @ w_hi.T
+        err = float((torch.sum(u64 * u64, dim=1) - q64).abs().max())
+        print(f"  K4 split error alone, {name}, lo*lo dropped: max abs {err:.3e} "
+              f"on quad (budget {QUAD_HIGH_FP64_BUDGET:g})")
+    del c, u64, q64, w64, w_tri, c_hi, c_lo, w_hi, w_lo
     k4_bytes = 4.0 * (m * d + n * d + n * (n + 1) / 2 + m)
     rebuild_ops = m * n * (3.0 * d + 1)
     tri_ops = m * n * (n + 1.0)
-    t_high = time_ms(lambda: sv.corr_quad(xq, x, delta, w,
-                                          quad_precision="high"), reps=3)
-    # the one-second calls: one warm-up and one timed run each
-    t_highest = time_ms(lambda: sv.corr_quad(xq, x, delta, w,
-                                             quad_precision="highest"), reps=1)
-    tp = time_ms(lambda: sv.corr_quad_plain(xq, x, delta, w), reps=1)
     # library yardstick, never called by the port: cuBLAS doing the whole
     # square contraction c @ W^T in fp32 (TF32 off) on a prebuilt c
     c = km.gaussian_corr_fused(xq, x, delta)
     with fp32_exact_matmul():
-        t_lib = time_ms(lambda: torch.matmul(c, w.T), reps=1)
+        t_lib, _ = time_ms(lambda: torch.matmul(c, w.T), reps=1)
     del c
+    print(f"  K4 high: the JAX package's bf16x3 arithmetic (three bf16 "
+          f"passes) would be bound at {3.0 * tri_ops / peaks[3] * 1e3:.4f} ms "
+          f"at the bf16 peak")
     rows["K4 high"] = (errs["high"], t_high, tp,
                        bound(k4_bytes, rebuild_ops, peaks, 3.0 * tri_ops), t_lib)
     rows["K4 highest"] = (errs["highest"], t_highest, tp,
@@ -321,15 +366,22 @@ def phase_serve(dev, card):
     mean_f, var_f = served.predict(xq)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    # the exact fp32 K4 body through the same entry point
-    _, var_h = served.predict(xq[:M_QUAD_CHECK], quad_precision="highest")
     mean_c, cov = served.predict(xq[:M_COV], full_cov=True)
     diag = served.validate_against(0)
     torch.cuda.synchronize()
     launches = counters()
-    print(f"  launches in the serving run: {launches}")
+    print(f"  launches in the serving run (K4 \"high\"): {launches}")
     if min(launches.values()) <= 0:
         raise SmokeFailure(f"a kernel of the path never launched: {launches}")
+    # the exact fp32 K4 body through the same entry point, counted apart
+    reset_counters()
+    _, var_h = served.predict(xq[:M_QUAD_CHECK], quad_precision="highest")
+    torch.cuda.synchronize()
+    side = counters()
+    print(f"  launches in the quad_precision=\"highest\" request: {side}")
+    if side["K3"] <= 0 or side["K4"] <= 0:
+        raise SmokeFailure(f"the \"highest\" request did not launch K3 and "
+                           f"K4: {side}")
 
     for name, v in (("mean_gemm", mean_g), ("var_gemm", var_g),
                     ("mean_fused", mean_f), ("var_fused", var_f),
@@ -387,7 +439,7 @@ def phase_serve(dev, card):
           f"+- {float(diag['mahalanobis_sd']):.4g})")
     del served, emul
     torch.cuda.empty_cache()
-    return launches
+    return launches, side["K4"]
 
 
 def phase_reference(dev):
@@ -428,7 +480,8 @@ def main() -> int:
     print(f"[phase 1] card: {card}; {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; bound peaks: "
           f"H100 {peak_name} {peaks[0] / 1e12:g} TB/s, {peaks[1] / 1e12:g} "
-          f"TFLOP/s fp32, {peaks[2] / 1e12:g} TFLOP/s TF32")
+          f"TFLOP/s fp32, {peaks[2] / 1e12:g} TFLOP/s TF32, "
+          f"{peaks[3] / 1e12:g} TFLOP/s bf16")
     t0 = time.perf_counter()
     paths = _build.build()
     print(f"  built {len(paths)} kernel libraries in "
@@ -440,7 +493,7 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     rows = phase_kernels(dev, peaks, card)
-    launches = phase_serve(dev, card)
+    launches, launches_highest = phase_serve(dev, card)
     phase_reference(dev)
 
     where = {
@@ -457,6 +510,8 @@ def main() -> int:
                        "gp_emu_uqsa_torch/csrc/corr_quad.cu",
                        "gp_emu_uqsa_tpu/ops/serve.py:371"),
     }
+    launches = {**launches, "K4 high": launches["K4"],
+                "K4 highest": launches_highest}
     kernels = []
     for key, (name, source, replaces) in where.items():
         err, t, tp, (b, by), lib = rows[key]

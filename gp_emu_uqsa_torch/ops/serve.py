@@ -182,8 +182,8 @@ def corr_quad(xstar, x, delta, w_tri, *,
     delta: (d,); w_tri: (n, n) with W = L^-1 in its lower triangle (the
     strict upper triangle is never read). On the card "highest" runs the
     exact fp32 body and "high" the 3xTF32 tensor-core body; on the CPU both
-    take the fp32 plain version. `launches` counts both bodies,
-    `tier_launches` each.
+    take the fp32 plain version. `launches` counts the launches of both
+    bodies.
     """
     _check_precision("quad_precision", quad_precision)
     n = x.shape[0]
@@ -210,12 +210,10 @@ def corr_quad(xstar, x, delta, w_tri, *,
                          quad.data_ptr(), m, n, d, _build.stream_ptr(xs))
         _build.check(err, _QUAD_SOURCE, f"corr_quad ({quad_precision})")
         corr_quad.launches += 1
-        corr_quad.tier_launches[quad_precision] += 1
     return quad
 
 
 corr_quad.launches = 0
-corr_quad.tier_launches = dict.fromkeys(_PRECISIONS, 0)
 
 
 @fp32_exact

@@ -1,0 +1,177 @@
+"""Time variants of K4's "high" body on the card, to see what holds it back.
+
+    python -m gp_emu_uqsa_torch.tools.k4_high_variants
+
+Each variant is `csrc/corr_quad.cu` with a few lines replaced (`VARIANTS`),
+built with the port's nvcc flags into `_build/variants/` (all builds started
+together) and called through its C entry point `gp_corr_quad_tf32x3` at the
+serving shape: m = 65536 queries, n = 16384 training points, d = 8, and
+W = L^-1 of the training correlation (delta 0.8, nugget 1e-4), the data and
+factor of `chip_smoke.py` phase 2. For each variant it prints the median
+CUDA-event time of 3 calls after a warm-up, the max abs error on quad
+against fp64 arithmetic on the same W and c, and ptxas's register and
+spill report. The variants that drop work give wrong answers on purpose:
+they time what is left. The unchanged body is also timed at d = 1, 2 and 4
+(the first d coordinates), since only the correlation rebuild grows with d.
+
+Needs one NVIDIA Hopper card and nvcc; imports no JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from gp_emu_uqsa_torch.ops import _build
+from gp_emu_uqsa_torch.ops import cholesky as chol
+from gp_emu_uqsa_torch.ops import kernel_matrix as km
+from gp_emu_uqsa_torch.ops import serve as sv
+
+N, D, M = 16384, 8, 65536
+DELTA, NUGGET = 0.8, 1e-4
+
+_FOLD = "constexpr int kFoldStages = 4;"
+_EXP = "const float c = expf(-d2[s][i]);"
+_SPLIT = "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
+# name -> (what it changes, [(text of corr_quad.cu, replacement)])
+VARIANTS = {
+    "as built": ("nothing", []),
+    "fold every stage": ("the fp32 fold after each stage (4 k8 steps)",
+                         [(_FOLD, "constexpr int kFoldStages = 1;")]),
+    "fold every 16 stages": ("the fp32 fold after 16 stages",
+                             [(_FOLD, "constexpr int kFoldStages = 16;")]),
+    "no fold": ("the tensor cores sum each k tile's whole j sweep",
+                [(_FOLD, "constexpr int kFoldStages = 1 << 20;")]),
+    "no rebuild": ("c is a constant: no distances, exp or split (wrong "
+                   "answers)", [(_EXP, "const float c = 0.5f;")]),
+    "no rebuild, no fold": ("both of the above (wrong answers)",
+                            [(_EXP, "const float c = 0.5f;"),
+                             (_FOLD, "constexpr int kFoldStages = 1 << 20;")]),
+    "__expf": ("the fast exp intrinsic in the rebuild",
+               [(_EXP, "const float c = __expf(-d2[s][i]);")]),
+    "cvt.rna split": ("the split by cvt.rna.tf32.f32 instead of add-and-mask",
+                      [(_SPLIT, 'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;"'
+                                ' : "=r"(r) : "f"(x));\n  return r;')]),
+}
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+
+
+def build_variants():
+    """{name: (ctypes library, ptxas lines of the tf32x3 kernel)}."""
+    src = (_build.CSRC / "corr_quad.cu").read_text()
+    out = _build.BUILD_ROOT / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, (_, edits)) in enumerate(VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: {old!r} is not in corr_quad.cu "
+                                   "exactly once")
+            text = text.replace(old, new)
+        cu = out / f"v{i}.cu"
+        cu.write_text(text)
+        so = out / f"v{i}.{os.getpid()}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(so), str(cu)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
+        lines = log.splitlines()
+        at = next(i for i, line in enumerate(lines)
+                  if "Compiling entry function" in line and "tf32x3" in line)
+        report = [line.split("info    :")[-1].strip()
+                  for line in lines[at + 1:at + 4]
+                  if "spill" in line or "registers" in line]
+        libs[name] = (ctypes.CDLL(str(so)), report)
+    return libs
+
+
+def launch(lib, xs, xt, w):
+    """quad from one variant's gp_corr_quad_tf32x3 (as ops/serve.py calls it)."""
+    m, d = xs.shape
+    n = xt.shape[0]
+    ld = -(-n // 4) * 4
+    xt_t = torch.zeros((d, ld), dtype=torch.float32, device=xs.device)
+    xt_t[:, :n] = xt.T
+    w_split = torch.empty((2, n, ld), dtype=torch.float32, device=xs.device)
+    quad = torch.zeros((m,), dtype=torch.float32, device=xs.device)
+    fn = lib.gp_corr_quad_tf32x3
+    fn.argtypes = list(_ARGTYPES)
+    fn.restype = ctypes.c_int
+    err = fn(xs.data_ptr(), xt_t.data_ptr(), w.data_ptr(), w_split.data_ptr(),
+             quad.data_ptr(), m, n, d, ld, _build.stream_ptr(xs))
+    if err:
+        raise RuntimeError(f"gp_corr_quad_tf32x3: CUDA error {err}")
+    return quad
+
+
+def time_ms(fn, reps: int = 3):
+    """(median CUDA-event ms of fn() over reps after a warm-up, last result)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times)), out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("k4_high_variants: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    libs = build_variants()
+    # chip_smoke.py phase 2's data: bench.py::_problem's x, seed 0
+    x_np = np.random.default_rng(0).uniform(size=(N, D)).astype(np.float32)
+    x = torch.as_tensor(x_np, device=dev)
+    xq = torch.as_tensor(np.random.default_rng(1).uniform(size=(M, D))
+                         .astype(np.float32), device=dev)
+    delta = torch.full((D,), DELTA, dtype=torch.float32, device=dev)
+    l, _ = chol.cholesky_with_jitter(km.gaussian_corr_self_fused(x, delta,
+                                                                 NUGGET))
+    w = torch.tril(chol.tri_inverse(l)).contiguous()
+    del l
+    xs, xt = sv._scaled(xq, x, delta)
+    # fp64 arithmetic on the same fp32 W and c, in slices of 4096 queries
+    w64 = w.double()
+    q64 = torch.cat([
+        torch.sum((km.sq_exp_plain(xs[s:s + 4096], xt).double() @ w64.T) ** 2,
+                  dim=1) for s in range(0, M, 4096)])
+    del w64
+    print(f"K4 \"high\" variants at m={M}, n={N}, d={D} on {card}")
+    for name, (lib, report) in libs.items():
+        t, quad = time_ms(lambda: launch(lib, xs, xt, w))
+        err = float((quad.double() - q64).abs().max())
+        print(f"  {name:22s} {t:9.2f} ms  vs fp64 {err:.3e}  "
+              f"[{'; '.join(report)}]  ({VARIANTS[name][0]})")
+    for d in (1, 2, 4):
+        t, _ = time_ms(lambda: launch(libs["as built"][0],
+                                      xs[:, :d].contiguous(),
+                                      xt[:, :d].contiguous(), w))
+        print(f"  as built, d={d:<13d} {t:9.2f} ms")
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

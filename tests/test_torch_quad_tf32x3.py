@@ -17,8 +17,10 @@ from hypothesis import given, settings, strategies as st
 
 from gp_emu_uqsa_tpu.ops import serve as jserve
 
+from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as tserve
+from gp_emu_uqsa_torch.tools import k4_high_variants
 
 torch.set_num_threads(1)
 
@@ -144,6 +146,16 @@ def test_tf32x3_plain_matches_pallas_high_and_skips_upper_triangle():
     np.testing.assert_array_equal(got_dirty, got)
 
 
+@pytest.mark.parametrize("name", sorted(k4_high_variants.VARIANTS))
+def test_k4_variant_edits_match_the_source_once(name):
+    """Each variant of the card-side timing script edits corr_quad.cu text
+    that is there exactly once, so a change to the source cannot leave a
+    variant silently equal to the body as built."""
+    src = (_build.CSRC / "corr_quad.cu").read_text()
+    for old, new in k4_high_variants.VARIANTS[name][1]:
+        assert src.count(old) == 1 and old != new
+
+
 @pytest.mark.cuda
 def test_cuda_corr_quad_high_matches_tf32x3_plain():
     if not torch.cuda.is_available():
@@ -152,9 +164,9 @@ def test_cuda_corr_quad_high_matches_tf32x3_plain():
     _, xs, x, delta = _inputs(21, 300, 700, 8)
     w = _gp_inverse_factor(x, delta, 1e-2)
     args = [T(v, device=dev) for v in (xs, x, delta, w)]
-    before = tserve.corr_quad.tier_launches["high"]
+    before = tserve.corr_quad.launches
     got = tserve.corr_quad(*args, quad_precision="high")
-    assert tserve.corr_quad.tier_launches["high"] == before + 1
+    assert tserve.corr_quad.launches == before + 1
     # same TF32 operands on both sides; only the fp32 summation order differs
     torch.testing.assert_close(got, tserve.corr_quad_tf32x3_plain(*args),
                                rtol=5e-4, atol=5e-5)

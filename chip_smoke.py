@@ -19,7 +19,11 @@ each of which fails the run with a non-zero exit:
    against its own arithmetic in plain PyTorch on the first and last 4096
    queries. It is timed beside cuBLAS doing the same contraction as one
    fp32 product, and the error of the products' split alone is printed for
-   3xTF32 and for the JAX package's bf16x3.
+   3xTF32 and for the JAX package's bf16x3. K3 and K4 "highest" are also
+   held against their plain versions at ragged shapes that hit the edges of
+   their tiles (m=4097, n=16383, d in {1, 20}; K3 with r in {1, 10, 17,
+   33}), and K4 "highest" is timed at the m=4096 request with its factor
+   tiles split over blocks (as served) and unsplit.
 3. Serve at full width (BASELINE config 5 on one card, the data of
    bench.py::_problem: seed 0, d=8, delta 0.8, nugget 1e-4, linear basis,
    fp32): save a trained emulator with n=16384 training rows and one
@@ -80,6 +84,14 @@ _PEAKS = {
 # K4 "high" against an fp64 evaluation of the same fp32 W and c: the tier's
 # measured budget on quad (docs/numerics.md, bf16x3 tier)
 QUAD_HIGH_FP64_BUDGET = 4.7e-5
+# K4 "highest" against the same fp64 evaluation: twice the PR 1 body's
+# 6.805e-6 at m=65536 on this W
+QUAD_HIGHEST_FP64_BUDGET = 1.4e-5
+# the fused tier's mean against an fp64 sum of the same fp32 state
+MEAN_FP64_BUDGET = 1e-4
+# ragged shapes for K3 and K4 "highest": one past a query tile, one short of
+# a training chunk and factor tile
+M_RAGGED, N_RAGGED = 4097, 16383
 
 
 class SmokeFailure(RuntimeError):
@@ -178,6 +190,7 @@ def bf16x3_split(c, w):
 def phase_kernels(dev, peaks, card):
     """Kernel vs plain version at the serving path's shapes; times; bounds."""
     print(f"[phase 2] kernels vs plain versions ({card})")
+    torch.manual_seed(5)
     x_np, _ = problem(N_TRAIN + N_VALID)
     x = torch.as_tensor(x_np[:N_TRAIN], device=dev)
     xv = torch.as_tensor(x_np[N_TRAIN:], device=dev)
@@ -220,8 +233,8 @@ def phase_kernels(dev, peaks, card):
     # K3: the serving slab, m = 65536, r = 10. rhs ~ N(0,1)/sqrt(n) keeps the
     # outputs O(0.1), as in the n = 300 test whose tolerance this is
     r = RHS_WIDTH
-    rhs = torch.as_tensor(rng.standard_normal((n, r)).astype(np.float32)
-                          / np.sqrt(n), device=dev)
+    rhs = torch.as_tensor((rng.standard_normal((n, r)) / np.sqrt(n))
+                          .astype(np.float32), device=dev)
     out = sv.corr_matvec(xq, x, delta, rhs)
     torch.cuda.synchronize()
     err = check_close("K3 corr_matvec", out,
@@ -230,6 +243,18 @@ def phase_kernels(dev, peaks, card):
     check_close("K3 corr_matvec (vector rhs)", vec,
                 sv.corr_matvec_plain(xq[:4096], x, delta, rhs[:, :1])[:, 0],
                 3e-5, 3e-5)
+    print(f"  K3 at m={M_SERVE}, r={r}: {sv._matvec_segments(M_SERVE, n, r)} "
+          f"segments of n")
+    for dr in (1, 20):
+        xr = torch.rand((N_RAGGED, dr), device=dev)
+        qr = torch.rand((M_RAGGED, dr), device=dev)
+        dl = torch.full((dr,), DELTA * (dr / DIM) ** 0.5, device=dev)
+        for rr in (1, 10, 17, 33):
+            b = torch.randn((N_RAGGED, rr), device=dev) / N_RAGGED ** 0.5
+            check_close(f"K3 corr_matvec, m={M_RAGGED}, n={N_RAGGED}, d={dr}, "
+                        f"r={rr} ({sv._matvec_segments(M_RAGGED, N_RAGGED, rr)}"
+                        f" segments)", sv.corr_matvec(qr, xr, dl, b),
+                        sv.corr_matvec_plain(qr, xr, dl, b), 3e-5, 3e-5)
     t, _ = time_ms(lambda: sv.corr_matvec(xq, x, delta, rhs))
     tp, _ = time_ms(lambda: sv.corr_matvec_plain(xq, x, delta, rhs), reps=3)
     m = M_SERVE
@@ -245,10 +270,10 @@ def phase_kernels(dev, peaks, card):
     got = {}
     t_high, got["high"] = time_ms(
         lambda: sv.corr_quad(xq, x, delta, w, quad_precision="high"), reps=3)
-    # the one-second calls: one warm-up and one timed run each
     t_highest, got["highest"] = time_ms(
         lambda: sv.corr_quad(xq, x, delta, w, quad_precision="highest"),
-        reps=1)
+        reps=3)
+    # the second-long calls: one warm-up and one timed run each
     tp, want = time_ms(lambda: sv.corr_quad_plain(xq, x, delta, w), reps=1)
     errs = {}
     for tier, rtol, atol in (("highest", 5e-4, 5e-5), ("high", 1e-3, 1e-4)):
@@ -271,9 +296,11 @@ def phase_kernels(dev, peaks, card):
     for tier in got:
         print(f"  K4 corr_quad ({tier}), m={m}, vs fp64 of the same W and c: "
               f"max abs {e64[tier]:.3e} (|quad| max {q_max:.3e})")
-    if e64["high"] > QUAD_HIGH_FP64_BUDGET:
-        raise SmokeFailure(f"K4 high: {e64['high']:.3e} from fp64 exceeds "
-                           f"{QUAD_HIGH_FP64_BUDGET:g}")
+    for tier, budget in (("high", QUAD_HIGH_FP64_BUDGET),
+                         ("highest", QUAD_HIGHEST_FP64_BUDGET)):
+        if e64[tier] > budget:
+            raise SmokeFailure(f"K4 {tier}: {e64[tier]:.3e} from fp64 exceeds "
+                               f"{budget:g}")
     # "high" against its own arithmetic (the same TF32 hi/lo operands, bit
     # for bit) on the first and the last 4096 queries: only the order and
     # rounding of the fp32 sums differ, so it gets the budget of two fp32
@@ -295,6 +322,38 @@ def phase_kernels(dev, peaks, card):
     print("  K4 corr_quad (both tiers): dirty upper triangle gives an "
           "identical result")
     del w_dirty
+    # "highest" at ragged shapes, on W = L^-1 of a random SPD matrix
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.randn((N_RAGGED, N_RAGGED), device=dev) / N_RAGGED ** 0.5
+    w_r = torch.eye(N_RAGGED, device=dev)
+    w_r = torch.tril(chol.tri_inverse(torch.linalg.cholesky(
+        torch.addmm(w_r, g, g.T))))
+    del g
+    for dr in (1, 20):
+        xr = torch.rand((N_RAGGED, dr), device=dev)
+        qr = torch.rand((M_RAGGED, dr), device=dev)
+        dl = torch.full((dr,), DELTA * (dr / DIM) ** 0.5, device=dev)
+        check_close(f"K4 corr_quad (highest), m={M_RAGGED}, n={N_RAGGED}, "
+                    f"d={dr} ({sv.quad_splits(M_RAGGED, N_RAGGED, sms)} "
+                    f"splits)", sv.corr_quad(qr, xr, dl, w_r),
+                    sv.corr_quad_plain(qr, xr, dl, w_r), 5e-4, 5e-5)
+    del w_r
+    # the m = 4096 "highest" request's K4: factor tiles split over blocks
+    # (as served) and in one block per query tile
+    xs_c, xt_c = sv._scaled(xc, x, delta)
+    splits = sv.quad_splits(M_QUAD_CHECK, n, sms)
+    t_split, q_split = time_ms(lambda: sv.corr_quad(xc, x, delta, w))
+    q_one = torch.zeros_like(q_split)
+
+    def unsplit():
+        _build.check(sv._launch_quad_fp32(xs_c, xt_c, w, q_one, splits=1),
+                     sv._QUAD_SOURCE, "corr_quad (highest, one split)")
+        return q_one
+    t_one, _ = time_ms(unsplit)
+    check_close(f"K4 corr_quad (highest), m={M_QUAD_CHECK}, {splits} splits "
+                f"vs one", q_split, q_one, 5e-4, 5e-5)
+    print(f"  K4 highest at the m={M_QUAD_CHECK} request: {t_split:.4f} ms "
+          f"with {splits} splits, {t_one:.4f} ms unsplit ({card})")
     # the error of the products' split alone (products summed in fp64, on
     # the first 4096 queries): this body's 3xTF32 and the JAX package's
     # bf16x3, against the "high" tier's budget
@@ -423,11 +482,14 @@ def phase_serve(dev, card):
     c64 = km.sq_exp_plain(xs.double() * inv,
                           served.train_view()[0].double() * inv)
     m64 = hs.double() @ st.beta.double() + c64 @ st.e.double()
-    print(f"  mean vs fp64 sum of the same state: fused "
-          f"{float((mean_f[:M_COMPARE].double() - m64).abs().max()):.3e}, "
+    fused_err = float((mean_f[:M_COMPARE].double() - m64).abs().max())
+    print(f"  mean vs fp64 sum of the same state: fused {fused_err:.3e}, "
           f"gemm {float((m_ref.double() - m64).abs().max()):.3e}; "
           f"|e| max {float(st.e.abs().max()):.3e}")
     del c64
+    if fused_err > MEAN_FP64_BUDGET:
+        raise SmokeFailure(f"fused mean: {fused_err:.3e} from fp64 exceeds "
+                           f"{MEAN_FP64_BUDGET:g}")
     jitter = float(served.state.jitter)
     pts = M_SERVE / serve_s
     print(f"  jitter used: {jitter:.6g} ({card})")

@@ -6,23 +6,46 @@
 // whitened variance quadratic t(x*)^T A^-1 t(x*) of the serving path. Two
 // bodies, one per precision tier of the TPU kernel.
 //
-// "highest" (gp_corr_quad, _quad_kernel's counterpart): exact fp32 on the
-// CUDA cores. Bound on the card: the m n (n + 1) fp32 operations of the
-// lower triangle of W c (two per multiply-add), against 2 n^2 bytes of W.
-// The TPU grid's sequential axes (factor-row tile k, and j <= k inside it)
-// become loops inside one block, so no reduction crosses blocks and there
-// are no atomics:
-//  - each block owns 64 queries and walks the factor rows in tiles of 64;
-//  - for each k tile it sweeps j in chunks of 32 up to the tile's last row,
-//    rebuilding c(i, j) in shared memory (fp32 differences, FMAs, expf) and
-//    accumulating y(i, k) = sum_j c(i, j) W(k, j) in registers, 4 queries x
-//    4 factor rows per thread, read as float4 from shared memory;
-//  - entries of W with j > k are never read (they load as zeros), and
-//    chunks past the tile's diagonal are skipped;
-//  - each chunk's partial sum is added to y (two-level summation), and at
-//    the end of each k tile y^2 folds into a per-query sum in registers;
-//  - a warp shuffle sums the 16 threads that share a query, and the block
-//    writes quad (m,) directly.
+// "highest" (gp_corr_quad, _quad_kernel's counterpart): exact fp32 FMAs on
+// the CUDA cores; no TF32, no split, no tensor cores. Bound on the card: the
+// m n (n + 1) fp32 operations of the lower triangle of W c (two per
+// multiply-add) at the fp32 peak, against 2 n^2 bytes of W. Every
+// instruction that is not one of those FMAs takes an issue slot from them,
+// and on the card the shared-memory loads that feed them cost more than
+// their count (tools/cuda_core_variants.py on an NVIDIA H100 80GB HBM3 at
+// 700 W: without the 2 c loads of each 64 FMAs the body ran 11% faster). So the design is an SGEMM-class loop
+// that gives each loaded operand and each rebuilt correlation entry as
+// many FMAs as the registers allow:
+//  - one preparation pass per call (w_transpose_kernel) writes a scratch
+//    copy Wt(j, k) = W(k, j) in which, for each j, the factor rows k are
+//    contiguous; it zeroes W's strict upper triangle and pads to the tile,
+//    so the diagonal tile needs no mask and a dirty upper triangle is never
+//    read;
+//  - a block owns 128 queries x 256 factor rows (a k tile), in two halves
+//    of 128 rows; each of its 256 threads holds 8 queries x 8 factor rows
+//    of y in each half (128 registers) and reads its operands as 4 float4
+//    from shared memory for 64 FMAs (conflict-free: a warp reads 2
+//    distinct c vectors and 16 consecutive W vectors). The halves run one
+//    after the other on the same rebuilt c, sharing one 64-register
+//    partial: 253 registers, no spills;
+//  - each k tile sweeps j in chunks of 64 up to its last row through a
+//    double-buffered ring (212 KB of shared memory): cp.async (16 bytes)
+//    brings the next chunk's Wt rows and the coordinates of the chunk after
+//    it, and the next chunk's c(i, j) is rebuilt into shared memory (fp32
+//    differences with FMAs, expf; 32 entries a thread) while the current
+//    chunk's FMAs run; one __syncthreads a chunk. A rebuilt entry feeds
+//    256 FMAs (PR 1's body: 64), which halved the rebuild's cost against
+//    a 128-row k tile; chunks of 32 and 16 columns took 7% and 17% longer;
+//  - two-level summation: each chunk's 64-term partial is added to y in
+//    fp32, and at the end of each k tile y^2 folds into a per-query sum;
+//  - small m: the k tiles of one query tile are independent until the sum
+//    of y^2, which has no cancellation. When the query tiles alone leave
+//    SMs idle, grid.y spreads the k tiles over `splits` blocks, each block
+//    taking tiles t and T-1-t of its pairs so every block gets the same
+//    share of the triangle; each writes its (m,) partial of quad and
+//    quad_combine_kernel sums them in a fixed order (no atomics). With one
+//    split the block writes quad directly. (The m = 4096 request on the
+//    same card: 4 splits, 28.4 ms, against 111.8 ms unsplit.)
 //
 // "high" (gp_corr_quad_tf32x3, _quad_kernel_bf16x3's counterpart): 3xTF32
 // on the tensor cores through wgmma. Each operand x is split as
@@ -82,113 +105,260 @@
 
 namespace {
 
-constexpr int kTileQ = 64;    // queries per block
-constexpr int kTileK = 64;    // factor rows per k tile
-constexpr int kChunkJ = 32;   // factor columns per j chunk
-constexpr int kPad = 4;       // keeps float4 rows aligned, spreads banks
-constexpr int kThreads = 256;
-constexpr int kGroups = 16;   // 16 x 16 threads, 4 x 4 outputs each
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__global__ void __launch_bounds__(kThreads)
-corr_quad_kernel(const float* __restrict__ xs, const float* __restrict__ xt,
-                 const float* __restrict__ w, float* __restrict__ quad,
-                 int m, int n, int d) {
-  __shared__ float s_q[gpemu::kMaxD][kTileQ];
-  __shared__ float s_t[gpemu::kMaxD][kChunkJ];
-  __shared__ __align__(16) float s_c[kChunkJ][kTileQ + kPad];
-  __shared__ __align__(16) float s_w[kChunkJ][kTileK + kPad];
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kTileQ;
+// ---------------------------------------------------------------------------
+// "highest": exact fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
 
-  for (int e = tid; e < kTileQ * d; e += kThreads) {
-    const int i = e / d, l = e - i * d;
-    s_q[l][i] = q0 + i < m ? xs[static_cast<size_t>(q0 + i) * d + l] : 0.f;
+namespace fp {
+constexpr int kTileQ = 128;     // queries per block
+constexpr int kTileK = 256;     // factor rows per k tile
+constexpr int kHalfK = 128;     // factor rows per half of a k tile
+constexpr int kChunkJ = 64;     // factor columns per stage, one fp32 fold
+constexpr int kThreads = 256;   // 16 x 16 threads, 8 x 8 outputs a half each
+constexpr int kGroups = 16;     // threads that share a query group
+constexpr int kRebuildJ = kChunkJ * kTileQ / kThreads;   // entries a thread
+constexpr int kTransposeTile = 32;
+constexpr int kSmemFloats = gpemu::kMaxD * kTileQ +      // s_q
+                            2 * gpemu::kMaxD * kChunkJ + // s_t
+                            2 * kChunkJ * kTileQ +       // s_c
+                            2 * kChunkJ * kTileK;        // s_w
+constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+}  // namespace fp
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// W (n x n, row-major, W in its lower triangle) -> wt (ld x ld):
+// wt[j][k] = W(k, j) for j <= k < n, else 0. Tiles of wt that no k tile's
+// sweep reaches (j past the k tile's last row) are not written.
+__global__ void __launch_bounds__(256)
+w_transpose_kernel(const float* __restrict__ w, float* __restrict__ wt,
+                   int n, int ld) {
+  __shared__ float tile[fp::kTransposeTile][fp::kTransposeTile + 1];
+  const int k0 = blockIdx.x * fp::kTransposeTile;
+  const int j0 = blockIdx.y * fp::kTransposeTile;
+  if (j0 > (k0 | (fp::kTileK - 1))) return;
+  const int tx = threadIdx.x % fp::kTransposeTile;
+  const int ty = threadIdx.x / fp::kTransposeTile;
+  for (int r = ty; r < fp::kTransposeTile; r += 256 / fp::kTransposeTile) {
+    const int k = k0 + r, j = j0 + tx;
+    tile[r][tx] = (k < n && j <= k) ? w[static_cast<size_t>(k) * n + j] : 0.f;
   }
-  // contraction: factor rows 4 tx .. 4 tx + 3, queries 4 ty .. 4 ty + 3
-  const int tx = tid % kGroups;
-  const int ty = tid / kGroups;
-  // correlation rebuild: query ci (consecutive across a warp), chunk
-  // columns cj + 4 s
-  const int ci = tid % kTileQ;
-  const int cj = tid / kTileQ;
+  __syncthreads();
+  for (int r = ty; r < fp::kTransposeTile; r += 256 / fp::kTransposeTile)
+    wt[static_cast<size_t>(j0 + r) * ld + k0 + tx] = tile[tx][r];
+}
 
-  float sumsq[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < n; k0 += kTileK) {
-    float y[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) y[a][b] = 0.f;
-    const int j_end = min(n, k0 + kTileK);   // W(k, j) = 0 for j > k
-    for (int j0 = 0; j0 < j_end; j0 += kChunkJ) {
-      __syncthreads();   // the previous chunk's readers are done
-      for (int e = tid; e < kChunkJ * d; e += kThreads) {
-        const int j = e / d, l = e - j * d;
-        s_t[l][j] = j0 + j < n ? xt[static_cast<size_t>(j0 + j) * d + l]
-                               : 0.f;
-      }
-      // row k of W is contiguous in j: consecutive threads, consecutive j
-      for (int e = tid; e < kTileK * kChunkJ; e += kThreads) {
-        const int kk = e / kChunkJ, jj = e - kk * kChunkJ;
-        const int gk = k0 + kk, gj = j0 + jj;
-        s_w[jj][kk] = (gk < n && gj <= gk)
-                          ? w[static_cast<size_t>(gk) * n + gj] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int s = 0; s < kChunkJ / (kThreads / kTileQ); ++s) {
-        const int jj = cj + (kThreads / kTileQ) * s;
-        float d2 = 0.f;
-        for (int l = 0; l < d; ++l) {
-          const float t = s_q[l][ci] - s_t[l][jj];
-          d2 = fmaf(t, t, d2);
-        }
-        s_c[jj][ci] = expf(-d2);
-      }
-      __syncthreads();
-      float part[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) part[a][b] = 0.f;
-#pragma unroll 8
-      for (int jj = 0; jj < kChunkJ; ++jj) {
-        const float4 cv = *reinterpret_cast<const float4*>(&s_c[jj][4 * ty]);
-        const float4 wv = *reinterpret_cast<const float4*>(&s_w[jj][4 * tx]);
-        const float cc[4] = {cv.x, cv.y, cv.z, cv.w};
-        const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) part[a][b] = fmaf(cc[a], ww[b], part[a][b]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) y[a][b] += part[a][b];
+// First factor row of the block's k tile number idx: its pairs are
+// p = split, split + splits, ..., each giving tiles p and tiles - 1 - p.
+__device__ __forceinline__ int k_tile_start(int idx, int split, int splits,
+                                            int tiles) {
+  const int p = split + (idx >> 1) * splits;
+  return ((idx & 1) ? tiles - 1 - p : p) * fp::kTileK;
+}
+
+// xt_t: (d, ld) the delta-scaled training inputs transposed, zero-padded;
+// wt: (ld, ld) from w_transpose_kernel; out: (splits, m) partials of quad
+// (quad itself for one split). ld is a multiple of kTileK.
+__global__ void __launch_bounds__(fp::kThreads, 1)
+corr_quad_fp32_kernel(const float* __restrict__ xs,
+                      const float* __restrict__ xt_t,
+                      const float* __restrict__ wt, float* __restrict__ out,
+                      int m, int n, int d, int ld, int splits) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                                      // [l][query]
+  float* s_t = s_q + gpemu::kMaxD * fp::kTileQ;           // [buf][l][j]
+  float* s_c = s_t + 2 * gpemu::kMaxD * fp::kChunkJ;      // [buf][j][query]
+  float* s_w = s_c + 2 * fp::kChunkJ * fp::kTileQ;        // [buf][j][k]
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * fp::kTileQ;
+  const int split = blockIdx.y;
+  const int tiles = ld / fp::kTileK;
+  const int pairs = (tiles + 1) / 2;
+  int my_tiles = 0;
+  for (int p = split; p < pairs; p += splits)
+    my_tiles += (tiles - 1 - p != p) ? 2 : 1;
+
+  for (int e = tid; e < fp::kTileQ * d; e += fp::kThreads) {
+    const int i = e / d, l = e - i * d;
+    s_q[l * fp::kTileQ + i] =
+        q0 + i < m ? xs[static_cast<size_t>(q0 + i) * d + l] : 0.f;
+  }
+
+  // the chunk stream: (local k tile, first factor row, first column)
+  struct Chunk {
+    int idx, k0, j0;
+  };
+  auto advance = [&](Chunk c) {
+    c.j0 += fp::kChunkJ;
+    if (c.j0 >= min(n, c.k0 + fp::kTileK)) {   // W(k, j) = 0 for j > k
+      ++c.idx;
+      c.j0 = 0;
+      c.k0 = c.idx < my_tiles ? k_tile_start(c.idx, split, splits, tiles) : 0;
     }
+    return c;
+  };
+  auto load_w = [&](const Chunk& c, int buf) {
+    float* dst = s_w + buf * fp::kChunkJ * fp::kTileK;
+    for (int e = tid; e < fp::kChunkJ * fp::kTileK / 4; e += fp::kThreads) {
+      const int jj = e / (fp::kTileK / 4), k4 = e % (fp::kTileK / 4);
+      cp_async16(dst + jj * fp::kTileK + 4 * k4,
+                 wt + static_cast<size_t>(c.j0 + jj) * ld + c.k0 + 4 * k4);
+    }
+  };
+  auto load_t = [&](const Chunk& c, int buf) {
+    float* dst = s_t + buf * gpemu::kMaxD * fp::kChunkJ;
+    for (int e = tid; e < d * (fp::kChunkJ / 4); e += fp::kThreads) {
+      const int l = e / (fp::kChunkJ / 4), v = e % (fp::kChunkJ / 4);
+      cp_async16(dst + l * fp::kChunkJ + 4 * v,
+                 xt_t + static_cast<size_t>(l) * ld + c.j0 + 4 * v);
+    }
+  };
+  // rebuild: query ci (consecutive across a warp), chunk columns
+  // cj .. cj + kRebuildJ - 1 (the same for the whole warp: broadcasts)
+  const int ci = tid % fp::kTileQ;
+  const int cj = (tid / fp::kTileQ) * fp::kRebuildJ;
+  auto rebuild = [&](int buf) {
+    const float* st = s_t + buf * gpemu::kMaxD * fp::kChunkJ + cj;
+    float d2[fp::kRebuildJ];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int jj = 0; jj < fp::kRebuildJ; ++jj) d2[jj] = 0.f;
+    for (int l = 0; l < d; ++l) {
+      const float q = s_q[l * fp::kTileQ + ci];
+      const float4* t4 = reinterpret_cast<const float4*>(st + l * fp::kChunkJ);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) sumsq[a] = fmaf(y[a][b], y[a][b], sumsq[a]);
+      for (int v = 0; v < fp::kRebuildJ / 4; ++v) {
+        const float4 t = t4[v];
+        float u = q - t.x;
+        d2[4 * v] = fmaf(u, u, d2[4 * v]);
+        u = q - t.y;
+        d2[4 * v + 1] = fmaf(u, u, d2[4 * v + 1]);
+        u = q - t.z;
+        d2[4 * v + 2] = fmaf(u, u, d2[4 * v + 2]);
+        u = q - t.w;
+        d2[4 * v + 3] = fmaf(u, u, d2[4 * v + 3]);
+      }
+    }
+    float* sc = s_c + buf * fp::kChunkJ * fp::kTileQ + ci;
+#pragma unroll
+    for (int jj = 0; jj < fp::kRebuildJ; ++jj)
+      sc[(cj + jj) * fp::kTileQ] = expf(-d2[jj]);
+  };
+
+  // contraction: queries 4 ty .. 4 ty + 3 and 64 + 4 ty .. 64 + 4 ty + 3,
+  // factor rows 4 tx .. and 64 + 4 tx .. of each half of the k tile
+  const int tx = tid % fp::kGroups;
+  const int ty = tid / fp::kGroups;
+  float y[2][8][8], sumsq[8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    sumsq[a] = 0.f;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) y[0][a][b] = y[1][a][b] = 0.f;
+  }
+
+  Chunk cur{0, k_tile_start(0, split, splits, tiles), 0};
+  Chunk nxt = advance(cur);
+  load_w(cur, 0);
+  load_t(cur, 0);
+  if (nxt.idx < my_tiles) load_t(nxt, 1);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();   // s_q, and the first stage
+  rebuild(0);
+  __syncthreads();
+  // at the top of step g: c and Wt of chunk g in buffer g % 2, the
+  // coordinates of chunk g + 1 in the other
+  for (int b = 0; cur.idx < my_tiles; b ^= 1) {
+    const Chunk nxt2 = advance(nxt);
+    if (nxt.idx < my_tiles) {
+      load_w(nxt, b ^ 1);
+      if (nxt2.idx < my_tiles) load_t(nxt2, b);
+      cp_async_commit();
+      rebuild(b ^ 1);
+    }
+    const float* sc = s_c + b * fp::kChunkJ * fp::kTileQ;
+    // the two halves of the k tile in turn, on the same rebuilt c
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* sw = s_w + b * fp::kChunkJ * fp::kTileK + h * fp::kHalfK;
+      float part[8][8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 8; ++bb) part[a][bb] = 0.f;
+#pragma unroll 16
+      for (int jj = 0; jj < fp::kChunkJ; ++jj) {
+        const float4 c0 = *reinterpret_cast<const float4*>(sc + jj * fp::kTileQ + 4 * ty);
+        const float4 c1 = *reinterpret_cast<const float4*>(sc + jj * fp::kTileQ + 64 + 4 * ty);
+        const float4 w0 = *reinterpret_cast<const float4*>(sw + jj * fp::kTileK + 4 * tx);
+        const float4 w1 = *reinterpret_cast<const float4*>(sw + jj * fp::kTileK + 64 + 4 * tx);
+        const float cc[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        const float ww[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int bb = 0; bb < 8; ++bb) part[a][bb] = fmaf(cc[a], ww[bb], part[a][bb]);
+      }
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 8; ++bb) y[h][a][bb] += part[a][bb];
+    }
+    if (nxt.idx != cur.idx) {   // the k tile's last chunk
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int bb = 0; bb < 8; ++bb) {
+            sumsq[a] = fmaf(y[h][a][bb], y[h][a][bb], sumsq[a]);
+            y[h][a][bb] = 0.f;
+          }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    cur = nxt;
+    nxt = nxt2;
   }
 
   // lanes 0-15 and 16-31 of a warp each hold one query group: sum over tx
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float v = sumsq[a];
+  for (int a = 0; a < 8; ++a) {
 #pragma unroll
-    for (int off = kGroups / 2; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    sumsq[a] = v;
+    for (int off = fp::kGroups / 2; off > 0; off >>= 1)
+      sumsq[a] += __shfl_xor_sync(0xffffffffu, sumsq[a], off);
   }
   if (tx == 0) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int gq = q0 + 4 * ty + a;
-      if (gq < m) quad[gq] = sumsq[a];
+    for (int a = 0; a < 8; ++a) {
+      const int gq = q0 + (a < 4 ? 4 * ty + a : 64 + 4 * ty + a - 4);
+      if (gq < m) out[static_cast<size_t>(split) * m + gq] = sumsq[a];
     }
   }
+}
+
+// quad(i) = sum over splits of partial(s, i), in split order
+__global__ void quad_combine_kernel(const float* __restrict__ partial,
+                                    float* __restrict__ quad, int m,
+                                    int splits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  float s = 0.f;
+  for (int p = 0; p < splits; ++p) s += partial[static_cast<size_t>(p) * m + i];
+  quad[i] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -218,10 +388,6 @@ constexpr size_t kSmemBytes =
                               kAcc * kConsumers + gpemu::kMaxD * kTileQ) +
     2 * kStages * sizeof(uint64_t);
 }  // namespace tc
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // fp32 -> TF32 rounded to nearest, ties away from zero (cvt.rna.tf32.f32
 // on finite inputs), as an fp32 bit pattern with the low 13 bits zero
@@ -600,13 +766,33 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const float* data,
 
 }  // namespace
 
-// xs: (m, d) delta-scaled queries, xt: (n, d) delta-scaled training inputs,
-// w: (n, n) lower-triangular, quad: (m,); all fp32, row-major, on the device.
-extern "C" int gp_corr_quad(const float* xs, const float* xt, const float* w,
-                            float* quad, int m, int n, int d, void* stream) {
-  const dim3 grid((m + kTileQ - 1) / kTileQ);
-  corr_quad_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xs, xt, w, quad, m, n, d);
+// The "highest" tier. xs: (m, d) delta-scaled queries; xt_t: (d, ld) the
+// delta-scaled training inputs transposed, zero-padded; w: (n, n) with W in
+// its lower triangle; wt: (ld, ld) scratch; partial: (splits, m) scratch,
+// unused for one split; quad: (m,). All fp32 on the device, ld a multiple
+// of 256 and >= n, 1 <= d <= 20, 1 <= splits <= (ld / 256 + 1) / 2.
+extern "C" int gp_corr_quad(const float* xs, const float* xt_t, const float* w,
+                            float* wt, float* partial, float* quad, int m,
+                            int n, int d, int ld, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = ld / fp::kTileK;
+  if (ld % fp::kTileK != 0 || ld < n || d < 1 || d > gpemu::kMaxD ||
+      splits < 1 || splits > (tiles + 1) / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 tgrid(ld / fp::kTransposeTile, ld / fp::kTransposeTile);
+  w_transpose_kernel<<<tgrid, 256, 0, s>>>(w, wt, n, ld);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(corr_quad_fp32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(fp::kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + fp::kTileQ - 1) / fp::kTileQ, splits);
+  corr_quad_fp32_kernel<<<grid, fp::kThreads, fp::kSmemBytes, s>>>(
+      xs, xt_t, wt, splits > 1 ? partial : quad, m, n, d, ld, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  quad_combine_kernel<<<(m + 255) / 256, 256, 0, s>>>(partial, quad, m, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -87,14 +87,19 @@ def build() -> dict[str, Path]:
     return targets
 
 
+def entry(lib: ctypes.CDLL, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of a loaded library, returning int."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def kernel(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of `source`'s library, built if needed."""
     if source not in _libs:
         _libs[source] = ctypes.CDLL(str(build()[source]))
-    fn = getattr(_libs[source], symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    return entry(_libs[source], symbol, argtypes)
 
 
 def check(err: int, source: str, what: str) -> None:

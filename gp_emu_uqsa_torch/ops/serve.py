@@ -11,9 +11,13 @@ through two contractions, so neither kernel writes it to device memory:
   variance quadratic |W c*|^2, W = L^-1 lower-triangular
   (`csrc/corr_quad.cu`).
 
-K3 is bound by its m n (3d + 1 + 2r) fp32 operations on the CUDA cores. K4
-has one body per TPU precision tier: "highest" runs the m n (n + 1)
-operations of the triangular product in exact fp32 on the CUDA cores, and
+K3 is bound by its m n (3d + 1 + 2r) fp32 operations on the CUDA cores; it
+splits n into segments whose partials a second pass sums in a fixed order
+(`corr_matvec_segmented_plain` models that order). K4 has one body per TPU
+precision tier: "highest" runs the m n (n + 1) operations of the triangular
+product in exact fp32 on the CUDA cores, spreading the factor tiles of a
+small request over `quad_splits` blocks (`corr_quad_split_plain` models the
+combine), and
 "high" (what `Emulator.predict` serves by default) runs them three times as
 3xTF32 on the tensor cores (`wgmma`): W and c split into TF32 hi and lo
 parts, c_hi W_hi + c_hi W_lo + c_lo W_hi in fp32, within the tier's
@@ -46,11 +50,19 @@ from gp_emu_uqsa_torch.ops.precision import fp32_exact
 MAX_RHS = 128
 _PRECISIONS = ("highest", "high")
 _MATVEC_SOURCE = "corr_matvec.cu"
-_MATVEC_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (
+_MATVEC_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
     ctypes.c_void_p,)
+_MATVEC_SEGMENTS_ARGTYPES = (ctypes.c_int,) * 3
+# K3's staging chunk and compensated-fold lengths (csrc/corr_matvec.cu)
+MATVEC_CHUNK = 256
+MATVEC_FOLD = 64
 _QUAD_SOURCE = "corr_quad.cu"
-_QUAD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
+_QUAD_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
     ctypes.c_void_p,)
+# K4 "highest"'s query and factor tiles (csrc/corr_quad.cu fp::kTileQ,
+# fp::kTileK)
+QUAD_TILE_Q = 128
+QUAD_TILE_K = 256
 _QUAD_TF32X3_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
     ctypes.c_void_p,)
 
@@ -78,6 +90,68 @@ def corr_matvec_plain(xstar, x, delta, rhs) -> torch.Tensor:
     return sq_exp_plain(xs, xt) @ rhs.to(torch.float32)
 
 
+@fp32_exact
+def corr_matvec_segmented_plain(xstar, x, delta, rhs, segments: int):
+    """K3's summation order in plain PyTorch, for the tests only.
+
+    n is cut into `segments` runs of whole MATVEC_CHUNK-row chunks as the
+    kernel's grid.y cuts it; inside a run, each MATVEC_FOLD-row partial is
+    added to the running total with Kahan compensation; the runs' totals
+    are summed in run order in fp64 and rounded once. (The kernel sums each
+    fold's terms one by one; here a matmul does.)
+    """
+    xs, xt = _scaled(xstar, x, delta)
+    rhs = rhs.to(torch.float32)
+    n = xt.shape[0]
+    chunks = -(-n // MATVEC_CHUNK)
+    total = torch.zeros((xs.shape[0], rhs.shape[1]), dtype=torch.float64,
+                        device=xs.device)
+    for s in range(segments):
+        lo = s * chunks // segments * MATVEC_CHUNK
+        hi = min(n, (s + 1) * chunks // segments * MATVEC_CHUNK)
+        acc = torch.zeros((xs.shape[0], rhs.shape[1]), dtype=torch.float32,
+                          device=xs.device)
+        comp = torch.zeros_like(acc)
+        for f in range(lo, hi, MATVEC_FOLD):
+            part = sq_exp_plain(xs, xt[f:f + MATVEC_FOLD]) @ rhs[f:f + MATVEC_FOLD]
+            yv = part - comp
+            t = acc + yv
+            comp = (t - acc) - yv
+            acc = t
+        total += acc.double()
+    return total.to(torch.float32)
+
+
+def _entry(lib, source: str, symbol: str, argtypes):
+    """`symbol` from `lib`, or from `source`'s library built here."""
+    if lib is None:
+        return _build.kernel(source, symbol, argtypes)
+    return _build.entry(lib, symbol, argtypes)
+
+
+def _matvec_segments(m: int, n: int, r: int, lib=None) -> int:
+    fn = _entry(lib, _MATVEC_SOURCE, "gp_corr_matvec_segments",
+                _MATVEC_SEGMENTS_ARGTYPES)
+    return int(fn(m, n, r))
+
+
+def _launch_matvec(xs, xt, rhs, out, segments=None, lib=None):
+    """csrc/corr_matvec.cu::gp_corr_matvec into out (m, r). `segments`
+    defaults to the library's plan for this card; `lib` is another build
+    of the source (tools/cuda_core_variants.py)."""
+    m, d = xs.shape
+    n, r = rhs.shape
+    fn = _entry(lib, _MATVEC_SOURCE, "gp_corr_matvec", _MATVEC_ARGTYPES)
+    with torch.cuda.device(xs.device):
+        if segments is None:
+            segments = _matvec_segments(m, n, r, lib)
+        partial = (torch.empty((segments, m, r), dtype=torch.float32,
+                               device=xs.device) if segments > 1 else out)
+        return fn(xs.data_ptr(), xt.data_ptr(), rhs.data_ptr(),
+                  partial.data_ptr(), out.data_ptr(), m, n, d, r, segments,
+                  _build.stream_ptr(xs))
+
+
 def corr_matvec(xstar, x, delta, rhs, *,
                 rhs_precision: str = "highest") -> torch.Tensor:
     """K3: exp(-D2(xstar/delta, x/delta)) @ rhs without the (m, n) block.
@@ -101,14 +175,11 @@ def corr_matvec(xstar, x, delta, rhs, *,
     xs, xt = _scaled(xstar, x, delta)
     rhs = rhs.to(torch.float32).contiguous()
     _check_cuda("corr_matvec", xs, xt, rhs)
-    m, d = xs.shape
+    m = xs.shape[0]
     n, r = rhs.shape
     out = torch.zeros((m, r), dtype=torch.float32, device=xs.device)
     if m and n and r:
-        fn = _build.kernel(_MATVEC_SOURCE, "gp_corr_matvec", _MATVEC_ARGTYPES)
-        with torch.cuda.device(xs.device):
-            err = fn(xs.data_ptr(), xt.data_ptr(), rhs.data_ptr(),
-                     out.data_ptr(), m, n, d, r, _build.stream_ptr(xs))
+        err = _launch_matvec(xs, xt, rhs, out)
         _build.check(err, _MATVEC_SOURCE, "corr_matvec")
         corr_matvec.launches += 1
     return out[:, 0] if squeeze else out
@@ -123,6 +194,53 @@ def corr_quad_plain(xstar, x, delta, w_tri) -> torch.Tensor:
     xs, xt = _scaled(xstar, x, delta)
     u = sq_exp_plain(xs, xt) @ torch.tril(w_tri.to(torch.float32)).T
     return torch.sum(u * u, dim=1)
+
+
+def quad_splits(m: int, n: int, sms: int) -> int:
+    """Blocks that share one query tile's factor tiles in K4 "highest".
+
+    One while the query tiles alone fill the card's `sms` SMs; otherwise as
+    many as fill them, at most the (tiles + 1) // 2 pairs of factor tiles.
+    """
+    q_tiles = -(-m // QUAD_TILE_Q)
+    pairs = (-(-n // QUAD_TILE_K) + 1) // 2
+    return max(1, min(pairs, sms // max(q_tiles, 1)))
+
+
+def quad_split_tiles(split: int, splits: int, tiles: int) -> list[int]:
+    """The factor tiles one block of K4 "highest" walks, in its order.
+
+    Its pairs are p = split, split + splits, ...; pair p gives tiles p and
+    tiles - 1 - p (once when they coincide), so each pair holds the same
+    share of the triangle (csrc/corr_quad.cu::k_tile_start).
+    """
+    out = []
+    for p in range(split, (tiles + 1) // 2, splits):
+        out += [p] if tiles - 1 - p == p else [p, tiles - 1 - p]
+    return out
+
+
+@fp32_exact
+def corr_quad_split_plain(xstar, x, delta, w_tri, splits: int) -> torch.Tensor:
+    """K4 "highest"'s split of the factor tiles in plain PyTorch, for the tests.
+
+    u = c @ tril(W)^T in fp32; each of `splits` blocks sums the y^2 of its
+    tiles (`quad_split_tiles`) in its order, and the blocks' partials are
+    summed in split order, as quad_combine_kernel does.
+    """
+    xs, xt = _scaled(xstar, x, delta)
+    n = xt.shape[0]
+    u = sq_exp_plain(xs, xt) @ torch.tril(w_tri.to(torch.float32)).T
+    tiles = -(-n // QUAD_TILE_K)
+    per_tile = [torch.sum(u[:, t * QUAD_TILE_K:(t + 1) * QUAD_TILE_K] ** 2,
+                          dim=1) for t in range(tiles)]
+    quad = torch.zeros(xs.shape[0], dtype=torch.float32, device=xs.device)
+    for s in range(splits):
+        part = torch.zeros_like(quad)
+        for t in quad_split_tiles(s, splits, tiles):
+            part = part + per_tile[t]
+        quad = quad + part
+    return quad
 
 
 def tf32_split(x: torch.Tensor):
@@ -158,19 +276,42 @@ def corr_quad_tf32x3_plain(xstar, x, delta, w_tri) -> torch.Tensor:
     return torch.sum(u * u, dim=1)
 
 
-def _launch_quad_tf32x3(xs, xt, w, quad):
-    """csrc/corr_quad.cu::gp_corr_quad_tf32x3 (the "high" body)."""
+def _launch_quad_tf32x3(xs, xt, w, quad, lib=None):
+    """csrc/corr_quad.cu::gp_corr_quad_tf32x3 (the "high" body); `lib` is
+    another build of the source (tools/k4_high_variants.py)."""
     m, d = xs.shape
     n = xt.shape[0]
     ld = -(-n // 4) * 4            # TMA row strides are multiples of 16 bytes
     xt_t = torch.zeros((d, ld), dtype=torch.float32, device=xs.device)
     xt_t[:, :n] = xt.T
     w_split = torch.empty((2, n, ld), dtype=torch.float32, device=xs.device)
-    fn = _build.kernel(_QUAD_SOURCE, "gp_corr_quad_tf32x3",
-                       _QUAD_TF32X3_ARGTYPES)
+    fn = _entry(lib, _QUAD_SOURCE, "gp_corr_quad_tf32x3",
+                _QUAD_TF32X3_ARGTYPES)
     with torch.cuda.device(xs.device):
         return fn(xs.data_ptr(), xt_t.data_ptr(), w.data_ptr(),
                   w_split.data_ptr(), quad.data_ptr(), m, n, d, ld,
+                  _build.stream_ptr(xs))
+
+
+def _launch_quad_fp32(xs, xt, w, quad, splits=None, lib=None):
+    """csrc/corr_quad.cu::gp_corr_quad (the "highest" body). `splits`
+    defaults to `quad_splits` on this card; `lib` is another build of the
+    source (tools/cuda_core_variants.py)."""
+    m, d = xs.shape
+    n = xt.shape[0]
+    ld = -(-n // QUAD_TILE_K) * QUAD_TILE_K
+    if splits is None:
+        sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+        splits = quad_splits(m, n, sms)
+    xt_t = torch.zeros((d, ld), dtype=torch.float32, device=xs.device)
+    xt_t[:, :n] = xt.T
+    wt = torch.empty((ld, ld), dtype=torch.float32, device=xs.device)
+    partial = (torch.empty((splits, m), dtype=torch.float32, device=xs.device)
+               if splits > 1 else quad)
+    fn = _entry(lib, _QUAD_SOURCE, "gp_corr_quad", _QUAD_ARGTYPES)
+    with torch.cuda.device(xs.device):
+        return fn(xs.data_ptr(), xt_t.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                  partial.data_ptr(), quad.data_ptr(), m, n, d, ld, splits,
                   _build.stream_ptr(xs))
 
 
@@ -204,10 +345,7 @@ def corr_quad(xstar, x, delta, w_tri, *,
         if quad_precision == "high":
             err = _launch_quad_tf32x3(xs, xt, w, quad)
         else:
-            fn = _build.kernel(_QUAD_SOURCE, "gp_corr_quad", _QUAD_ARGTYPES)
-            with torch.cuda.device(xs.device):
-                err = fn(xs.data_ptr(), xt.data_ptr(), w.data_ptr(),
-                         quad.data_ptr(), m, n, d, _build.stream_ptr(xs))
+            err = _launch_quad_fp32(xs, xt, w, quad)
         _build.check(err, _QUAD_SOURCE, f"corr_quad ({quad_precision})")
         corr_quad.launches += 1
     return quad

@@ -22,6 +22,7 @@ import ctypes
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -57,20 +58,22 @@ VARIANTS = {
                       [(_SPLIT, 'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;"'
                                 ' : "=r"(r) : "f"(x));\n  return r;')]),
 }
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 
 
-def build_variants():
-    """{name: (ctypes library, ptxas lines of the tf32x3 kernel)}."""
-    src = (_build.CSRC / "corr_quad.cu").read_text()
-    out = _build.BUILD_ROOT / "variants"
+def build_variants(source: str = "corr_quad.cu", variants=None,
+                   kernel: str = "tf32x3"):
+    """{name: (ctypes library, ptxas lines of `kernel`)} for each variant of
+    `source` (default: this module's VARIANTS of the "high" body)."""
+    variants = VARIANTS if variants is None else variants
+    src = (_build.CSRC / source).read_text()
+    out = _build.BUILD_ROOT / "variants" / Path(source).stem
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, (_, edits)) in enumerate(VARIANTS.items()):
+    for i, (name, (_, edits)) in enumerate(variants.items()):
         text = src
         for old, new in edits:
             if text.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} is not in corr_quad.cu "
+                raise RuntimeError(f"{name}: {old!r} is not in {source} "
                                    "exactly once")
             text = text.replace(old, new)
         cu = out / f"v{i}.cu"
@@ -88,7 +91,7 @@ def build_variants():
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
         lines = log.splitlines()
         at = next(i for i, line in enumerate(lines)
-                  if "Compiling entry function" in line and "tf32x3" in line)
+                  if "Compiling entry function" in line and kernel in line)
         report = [line.split("info    :")[-1].strip()
                   for line in lines[at + 1:at + 4]
                   if "spill" in line or "registers" in line]
@@ -97,19 +100,10 @@ def build_variants():
 
 
 def launch(lib, xs, xt, w):
-    """quad from one variant's gp_corr_quad_tf32x3 (as ops/serve.py calls it)."""
-    m, d = xs.shape
-    n = xt.shape[0]
-    ld = -(-n // 4) * 4
-    xt_t = torch.zeros((d, ld), dtype=torch.float32, device=xs.device)
-    xt_t[:, :n] = xt.T
-    w_split = torch.empty((2, n, ld), dtype=torch.float32, device=xs.device)
-    quad = torch.zeros((m,), dtype=torch.float32, device=xs.device)
-    fn = lib.gp_corr_quad_tf32x3
-    fn.argtypes = list(_ARGTYPES)
-    fn.restype = ctypes.c_int
-    err = fn(xs.data_ptr(), xt_t.data_ptr(), w.data_ptr(), w_split.data_ptr(),
-             quad.data_ptr(), m, n, d, ld, _build.stream_ptr(xs))
+    """quad from one variant's gp_corr_quad_tf32x3, launched as
+    ops/serve.py launches it."""
+    quad = torch.zeros((xs.shape[0],), dtype=torch.float32, device=xs.device)
+    err = sv._launch_quad_tf32x3(xs, xt, w, quad, lib=lib)
     if err:
         raise RuntimeError(f"gp_corr_quad_tf32x3: CUDA error {err}")
     return quad

@@ -8,11 +8,22 @@ PyTorch built for CUDA and the CUDA toolkit (nvcc). Imports no JAX. Phases,
 each of which fails the run with a non-zero exit:
 
 1. Print the card's name and power limit (nvidia-smi); build the CUDA
-   kernels from `gp_emu_uqsa_torch/csrc/` and print the build time.
+   kernels from `gp_emu_uqsa_torch/csrc/` and print the build time, and
+   ptxas's registers and spills and the launch plan of the K1/K2 bodies.
 2. Hold each kernel (K1-K4) against its plain PyTorch version on the card at
    the serving path's shapes, with the tolerances of
-   tests/test_pallas_kernels.py; time kernel and plain version (CUDA events,
-   median) and compute the bound from the same shapes. K4 is held and timed
+   tests/test_pallas_kernels.py; time each kernel two ways, its C entry
+   point alone on preallocated buffers (CUDA events around 20 back-to-back
+   launches: `ms`) and through its wrapper (median: `wrapper_ms`), time the
+   plain version, and compute the bound from the same shapes. K1 and K2 are
+   held bit for bit (K1 also exactly symmetric) at n=16384 and at K2's three
+   served shapes (1000 x 16384, 256 x 16384, 256 x 256), and at ragged
+   shapes (K1 at n in {513, 16383}, K2 at 257 x 16383, d in {1, 20}); K1 is
+   timed beside fill_(1.0) of its output, what the card's store path gives.
+   The K1 and K2 wrappers, with delta and the nugget as tensors on the card,
+   run under torch.cuda.set_sync_debug_mode("error") (a host sync fails
+   the run), and the profiler counts the kernels each call runs (one).
+   K4 is held and timed
    per precision tier ("highest": exact fp32 on the CUDA cores; "high":
    3xTF32 on the tensor cores) at the serving request m=65536, against the
    plain version and an fp64 evaluation of the same W and c; "high" also
@@ -44,6 +55,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -54,12 +66,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gp_emu_uqsa_torch import Emulator, gp, load_emulator, params_from_numpy, save_emulator
+from gp_emu_uqsa_torch import (
+    Emulator, gp, kernels, load_emulator, params_from_numpy, save_emulator,
+)
 from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import cholesky as chol
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
 from gp_emu_uqsa_torch.ops.precision import fp32_exact_matmul
+from gp_emu_uqsa_torch.tools.k4_high_variants import launches_ms, ptxas_report
 
 N_TRAIN = 16384          # training rows (BASELINE config 5)
 N_VALID = 256            # one V-set: tv_config (65, 64, 1) over 16640 rows
@@ -123,13 +138,18 @@ def problem(n: int, d: int = DIM, seed: int = 0):
 
 def time_ms(fn, reps: int = 5):
     """(median CUDA-event time of fn() over `reps` runs after one warm-up,
-    the last run's result)."""
+    the last run's result). The events are created before the timed runs:
+    creating one costs the host about as much as a short kernel takes
+    (`tools/cuda_core_variants.py build` times it)."""
     fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for pair in events:
+        for event in pair:
+            event.record()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
+    for start, stop in events:
         start.record()
         out = fn()
         stop.record()
@@ -153,6 +173,134 @@ def check_close(name, got, want, rtol, atol) -> float:
     if not ok:
         raise SmokeFailure(f"{name}: exceeds its tolerance {worst:.3f}-fold")
     return max_err
+
+
+def check_build(name, got, want, symmetric=False) -> float:
+    """A correlation build against its plain version: within K1/K2's
+    tolerance (rtol 2e-5, atol 2e-6) and, as designed, bit for bit; K1 also
+    exactly symmetric."""
+    err = check_close(name, got, want, 2e-5, 2e-6)
+    print(f"    bitwise equal to the plain version: {torch.equal(got, want)}"
+          + (f"; torch.equal(a, a.T): {torch.equal(got, got.T)}"
+             if symmetric else ""))
+    if symmetric and not torch.equal(got, got.T):
+        raise SmokeFailure(f"{name}: output is not exactly symmetric")
+    return err
+
+
+def entry_call(source: str, symbol: str, argtypes, *args):
+    """A no-argument call of a C entry point on fixed arguments on the
+    current stream (tensors go as their pointers and are kept alive);
+    raises on an error code."""
+    fn = _build.kernel(source, symbol, argtypes)
+    ptrs = (*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args), torch.cuda.current_stream().cuda_stream)
+
+    def call(_keep=args):
+        err = fn(*ptrs)
+        if err:
+            _build.check(err, source, symbol)
+    return call
+
+
+def self_entry(x, delta, nugget, out):
+    """K1's C entry point alone, writing into out."""
+    n, d = x.shape
+    return entry_call(km._SOURCE, "gp_corr_self", km._SELF_ARGTYPES,
+                      x, delta, nugget, 0.0, out, n, d)
+
+
+def cross_entry(x1, x2, delta, out):
+    """K2's C entry point alone, writing into out."""
+    (m, d), n = x1.shape, x2.shape[0]
+    return entry_call(km._SOURCE, "gp_corr_cross", km._CROSS_ARGTYPES,
+                      x1, x2, delta, out, m, n, d)
+
+
+def matvec_entry(xq, x, delta, rhs):
+    """K3's C entry point alone on buffers prepared as ops/serve.py
+    prepares them."""
+    xs, xt = sv._scaled(xq, x, delta)
+    (m, d), (n, r) = xs.shape, rhs.shape
+    segments = sv._matvec_segments(m, n, r)
+    out = torch.zeros((m, r), dtype=torch.float32, device=xs.device)
+    partial = (torch.empty((segments, m, r), dtype=torch.float32,
+                           device=xs.device) if segments > 1 else out)
+    return entry_call(sv._MATVEC_SOURCE, "gp_corr_matvec",
+                      sv._MATVEC_ARGTYPES, xs, xt, rhs, partial, out, m, n,
+                      d, r, segments)
+
+
+def quad_entry(xq, x, delta, w, tier):
+    """K4's C entry point of one tier alone on buffers prepared as
+    ops/serve.py prepares them."""
+    xs, xt = sv._scaled(xq, x, delta)
+    (m, d), n = xs.shape, xt.shape[0]
+    quad = torch.zeros((m,), dtype=torch.float32, device=xs.device)
+    tile = 4 if tier == "high" else sv.QUAD_TILE_K
+    ld = -(-n // tile) * tile
+    xt_t = torch.zeros((d, ld), dtype=torch.float32, device=xs.device)
+    xt_t[:, :n] = xt.T
+    if tier == "high":
+        w_split = torch.empty((2, n, ld), dtype=torch.float32, device=xs.device)
+        return entry_call(sv._QUAD_SOURCE, "gp_corr_quad_tf32x3",
+                          sv._QUAD_TF32X3_ARGTYPES, xs, xt_t, w, w_split,
+                          quad, m, n, d, ld)
+    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    splits = sv.quad_splits(m, n, sms)
+    wt = torch.empty((ld, ld), dtype=torch.float32, device=xs.device)
+    partial = (torch.empty((splits, m), dtype=torch.float32, device=xs.device)
+               if splits > 1 else quad)
+    return entry_call(sv._QUAD_SOURCE, "gp_corr_quad", sv._QUAD_ARGTYPES, xs,
+                      xt_t, w, wt, partial, quad, m, n, d, ld, splits)
+
+
+def device_kernels(fn):
+    """Names of the kernels that fn() ran on the card, from torch.profiler's
+    trace; None when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def check_build_wrappers(x, xv):
+    """K1 and K2 through their wrappers with delta and the nugget as tensors
+    on the card (kernels.corr_self and kernels.corr pass params.delta and
+    params.nugget): no host synchronisation under
+    torch.cuda.set_sync_debug_mode("error"), and one kernel on the card per
+    call."""
+    params = params_from_numpy(np.log(np.full(DIM, DELTA)), 0.0,
+                               np.log(NUGGET), device=x.device,
+                               dtype=torch.float32)
+    delta, nugget = params.delta, params.nugget
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # a sync raises
+    try:
+        km.gaussian_corr_self_fused(x, delta, nugget)
+        km.gaussian_corr_fused(xv, x, delta)
+        kernels.corr_self(x, params)
+        kernels.corr(xv, x, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  K1, K2 wrappers and kernels.corr_self/corr with device delta "
+          "and nugget: no host sync under set_sync_debug_mode(\"error\")")
+    for name, fn in (
+            ("K1", lambda: km.gaussian_corr_self_fused(x, delta, nugget)),
+            ("K2", lambda: km.gaussian_corr_fused(xv, x, delta))):
+        seen = device_kernels(fn)
+        if seen is None:
+            print(f"  {name} wrapper, kernels on the card per call: not "
+                  "measured (the profiler's trace holds no device activity)")
+            continue
+        print(f"  {name} wrapper, kernels on the card per call: {len(seen)} "
+              f"{sorted(set(seen))}")
+        if len(seen) != 1:
+            raise SmokeFailure(f"{name} wrapper ran {len(seen)} kernels, not 1")
 
 
 def bound(bytes_moved: float, flops: float, peaks, tf32_flops: float = 0.0):
@@ -201,34 +349,71 @@ def phase_kernels(dev, peaks, card):
     n, d = N_TRAIN, DIM
     rows = {}
 
-    # K1: the training build at n = 16384
-    a = km.gaussian_corr_self_fused(x, delta, NUGGET)
+    # K1: the training build at n = 16384, with delta and the nugget as
+    # tensors on the card, as kernels.corr_self passes them
+    nugget = torch.tensor(NUGGET, dtype=torch.float32, device=dev)
+    a = km.gaussian_corr_self_fused(x, delta, nugget)
     torch.cuda.synchronize()
-    err = check_close("K1 gaussian_corr_self", a,
-                      km.gaussian_corr_self_plain(x, delta, NUGGET), 2e-5, 2e-6)
-    if not torch.equal(a, a.T):
-        raise SmokeFailure("K1: output is not exactly symmetric")
-    t, _ = time_ms(lambda: km.gaussian_corr_self_fused(x, delta, NUGGET))
+    err = check_build("K1 gaussian_corr_self", a,
+                      km.gaussian_corr_self_plain(x, delta, NUGGET),
+                      symmetric=True)
+    t_wrap, _ = time_ms(lambda: km.gaussian_corr_self_fused(x, delta, nugget))
+    t = launches_ms(self_entry(x, delta, nugget, a))
+    t_fill, _ = time_ms(lambda: a.fill_(1.0), reps=20)
     tp, _ = time_ms(lambda: km.gaussian_corr_self_plain(x, delta, NUGGET),
                     reps=3)
-    rows["K1"] = (err, t, tp, bound(4.0 * (n * d + n * n),
-                                    n * n * (3.0 * d + 1), peaks), None)
+    rows["K1"] = (err, t, t_wrap, tp, bound(4.0 * (n * d + n * n),
+                                            n * n * (3.0 * d + 1), peaks),
+                  None)
+    print(f"  K1 at n={n}: {t:.4f} ms alone, {t_wrap:.4f} ms through the "
+          f"wrapper; write-rate yardstick fill_(1.0) of the same {n}^2 fp32 "
+          f"output {t_fill:.4f} ms (median of 20): K1 writes at "
+          f"{t_fill / t:.3f} of fill_'s rate ({card})")
     # W = L^-1 of the same matrix, as the serving predictor builds it
+    a = km.gaussian_corr_self_fused(x, delta, nugget)
     l, jitter = chol.cholesky_with_jitter(a)
     w = torch.tril(chol.tri_inverse(l))
     del a, l
     print(f"  (K4 check factor: jitter {float(jitter):.4g})")
 
-    # K2: the validation cross block, 256 x 16384
-    c = km.gaussian_corr_fused(xv, x, delta)
-    torch.cuda.synchronize()
-    err = check_close("K2 gaussian_corr", c,
-                      km.gaussian_corr_plain(xv, x, delta), 2e-5, 2e-6)
-    t, _ = time_ms(lambda: km.gaussian_corr_fused(xv, x, delta))
-    tp, _ = time_ms(lambda: km.gaussian_corr_plain(xv, x, delta))
+    # K2 at the serving run's shapes: gp.predict_batched (m = 1000),
+    # predict(full_cov) and validate (256 x n, 256 x 256); the kernels entry
+    # is the validation block, 256 x 16384
+    k2 = {}
+    for xa, xb in ((xq[:M_GEMM], x), (xv, x), (xv, xv)):
+        shape = f"{xa.shape[0]} x {xb.shape[0]}"
+        c = km.gaussian_corr_fused(xa, xb, delta)
+        torch.cuda.synchronize()
+        err = check_build(f"K2 gaussian_corr, {shape}", c,
+                          km.gaussian_corr_plain(xa, xb, delta))
+        t_wrap, _ = time_ms(lambda: km.gaussian_corr_fused(xa, xb, delta),
+                            reps=20)
+        t = launches_ms(cross_entry(xa, xb, delta, c))
+        k2[shape] = (err, t, t_wrap)
+        print(f"  K2 at {shape}: {t * 1e3:.2f} us alone, {t_wrap * 1e3:.2f} us "
+              f"through the wrapper ({card})")
     mv = xv.shape[0]
-    rows["K2"] = (err, t, tp, bound(4.0 * (mv * n + (mv + n) * d),
-                                    mv * n * (3.0 * d + 1), peaks), None)
+    tp, _ = time_ms(lambda: km.gaussian_corr_plain(xv, x, delta))
+    rows["K2"] = (*k2[f"{mv} x {n}"], tp,
+                  bound(4.0 * (mv * n + (mv + n) * d), mv * n * (3.0 * d + 1),
+                        peaks), None)
+    # ragged edges: past and short of a 64-row tile, rows that are not a
+    # multiple of 16 bytes (thread stores instead of TMA), d in {1, 20}
+    for dr in (1, 20):
+        dl = torch.full((dr,), DELTA * (dr / DIM) ** 0.5, device=dev)
+        for nr in (513, N_RAGGED):
+            xr = torch.rand((nr, dr), device=dev)
+            check_build(f"K1 gaussian_corr_self, n={nr}, d={dr}",
+                        km.gaussian_corr_self_fused(xr, dl, nugget),
+                        km.gaussian_corr_self_plain(xr, dl, NUGGET),
+                        symmetric=True)
+        xr = torch.rand((N_RAGGED, dr), device=dev)
+        qr = torch.rand((N_VALID + 1, dr), device=dev)
+        check_build(f"K2 gaussian_corr, {N_VALID + 1} x {N_RAGGED}, d={dr}",
+                    km.gaussian_corr_fused(qr, xr, dl),
+                    km.gaussian_corr_plain(qr, xr, dl))
+    del xr, qr
+    check_build_wrappers(x, xv)
 
     # K3: the serving slab, m = 65536, r = 10. rhs ~ N(0,1)/sqrt(n) keeps the
     # outputs O(0.1), as in the n = 300 test whose tolerance this is
@@ -255,10 +440,11 @@ def phase_kernels(dev, peaks, card):
                         f"r={rr} ({sv._matvec_segments(M_RAGGED, N_RAGGED, rr)}"
                         f" segments)", sv.corr_matvec(qr, xr, dl, b),
                         sv.corr_matvec_plain(qr, xr, dl, b), 3e-5, 3e-5)
-    t, _ = time_ms(lambda: sv.corr_matvec(xq, x, delta, rhs))
+    t_wrap, _ = time_ms(lambda: sv.corr_matvec(xq, x, delta, rhs))
+    t = launches_ms(matvec_entry(xq, x, delta, rhs))
     tp, _ = time_ms(lambda: sv.corr_matvec_plain(xq, x, delta, rhs), reps=3)
     m = M_SERVE
-    rows["K3"] = (err, t, tp, bound(4.0 * (m * d + n * d + n * r + m * r),
+    rows["K3"] = (err, t, t_wrap, tp, bound(4.0 * (m * d + n * d + n * r + m * r),
                                     m * n * (3.0 * d + 1 + 2 * r), peaks),
                   None)
 
@@ -383,14 +569,17 @@ def phase_kernels(dev, peaks, card):
     print(f"  K4 high: the JAX package's bf16x3 arithmetic (three bf16 "
           f"passes) would be bound at {3.0 * tri_ops / peaks[3] * 1e3:.4f} ms "
           f"at the bf16 peak")
-    rows["K4 high"] = (errs["high"], t_high, tp,
+    alone = {tier: launches_ms(quad_entry(xq, x, delta, w, tier))
+             for tier in ("high", "highest")}
+    rows["K4 high"] = (errs["high"], alone["high"], t_high, tp,
                        bound(k4_bytes, rebuild_ops, peaks, 3.0 * tri_ops), t_lib)
-    rows["K4 highest"] = (errs["highest"], t_highest, tp,
+    rows["K4 highest"] = (errs["highest"], alone["highest"], t_highest, tp,
                           bound(k4_bytes, rebuild_ops + tri_ops, peaks), t_lib)
-    for name, (_, t, tp, (b, by), lib) in rows.items():
+    for name, (_, t, t_wrap, tp, (b, by), lib) in rows.items():
         extra = "" if lib is None else f", cuBLAS fp32 product {lib:.4f} ms"
-        print(f"  {name}: {t:.4f} ms (plain {tp:.4f} ms, bound {b:.4f} ms by "
-              f"{by}{extra}) on {card}")
+        print(f"  {name}: {t:.4f} ms alone, {t_wrap:.4f} ms through the "
+              f"wrapper (plain {tp:.4f} ms, bound {b:.4f} ms by {by}{extra}) "
+              f"on {card}")
     del w, xq, x, xv
     torch.cuda.empty_cache()
     return rows
@@ -553,6 +742,19 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "error",
                                        "arning")):
                 print(f"  {src}: {line.strip()}")
+    log = _build.build_log.get(km._SOURCE)
+    plan = (ctypes.c_int * 3)()
+    for name, self_, (m, n), body in (
+            ("K1", 1, (N_TRAIN, N_TRAIN), "corr_build_kernelILb1E"),
+            ("K2", 0, (N_VALID, N_TRAIN), "corr_build_kernelILb0E")):
+        _build.kernel(km._SOURCE, "gp_corr_build_plan",
+                      (ctypes.c_int,) * 3 + (ctypes.c_void_p,))(
+            self_, m, n, ctypes.addressof(plan))
+        report = ("not rebuilt in this run" if log is None
+                  else "; ".join(ptxas_report(log, body)))
+        print(f"  {name} body ptxas: {report}; at {m} x {n}: {plan[0]} tiles "
+              f"on {plan[1]} blocks, {plan[2]} bytes of dynamic shared "
+              f"memory a block")
 
     rows = phase_kernels(dev, peaks, card)
     launches, launches_highest = phase_serve(dev, card)
@@ -574,14 +776,15 @@ def main() -> int:
     }
     launches = {**launches, "K4 high": launches["K4"],
                 "K4 highest": launches_highest}
-    kernels = []
+    entries = []
     for key, (name, source, replaces) in where.items():
-        err, t, tp, (b, by), lib = rows[key]
-        kernels.append({"name": name, "route": "cuda", "source": source,
+        err, t, t_wrap, tp, (b, by), lib = rows[key]
+        entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
-                        "max_abs_err": err, "ms": t, "plain_ms": tp,
-                        "bound_ms": b, "bound_by": by, "library_ms": lib})
-    print(json.dumps({"kernels": kernels}))
+                        "max_abs_err": err, "ms": t, "wrapper_ms": t_wrap,
+                        "plain_ms": tp, "bound_ms": b, "bound_by": by,
+                        "library_ms": lib})
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 # nvcc's output (ptxas register and shared-memory report) per source,
 # filled by the build that produced the libraries in this process
 build_log: dict[str, str] = {}
@@ -96,10 +97,14 @@ def entry(lib: ctypes.CDLL, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def kernel(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point `symbol` of `source`'s library, built if needed."""
-    if source not in _libs:
-        _libs[source] = ctypes.CDLL(str(build()[source]))
-    return entry(_libs[source], symbol, argtypes)
+    """The C entry point `symbol` of `source`'s library, built if needed;
+    fetched once per process."""
+    fn = _entries.get((source, symbol))
+    if fn is None:
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(str(build()[source]))
+        fn = _entries[(source, symbol)] = entry(_libs[source], symbol, argtypes)
+    return fn
 
 
 def check(err: int, source: str, what: str) -> None:

@@ -1,6 +1,6 @@
-"""Time variants of the CUDA-core bodies, K4 "highest" and K3, on the card.
+"""Time variants of the CUDA-core bodies, K4 "highest", K3 and K1/K2, on the card.
 
-    python -m gp_emu_uqsa_torch.tools.cuda_core_variants
+    python -m gp_emu_uqsa_torch.tools.cuda_core_variants [quad] [matvec] [build]
 
 Each variant is `csrc/corr_quad.cu` or `csrc/corr_matvec.cu` with a few
 lines replaced (`QUAD_VARIANTS`, `MATVEC_VARIANTS`), built with the port's
@@ -19,6 +19,13 @@ the same contraction (`torch.matmul(c, W^T)` on a prebuilt c, the
 `library_ms` of `chip_smoke.py`) run, nvidia-smi samples the SM clock and
 the power draw every 50 ms.
 
+`BUILD_VARIANTS` are edits of `csrc/corr_build.cu` (K1/K2): each is timed
+through its C entry point on preallocated buffers (CUDA events around 20
+back-to-back launches) for K1 at n = 16384 and K2 at 256 x 16384, d = 8,
+with the max abs error against the plain versions; beside them, the time
+of `fill_(1.0)` on the same 16384^2 fp32 output, what the card's store path
+gives. The arguments name the sections to run (all by default).
+
 Needs one NVIDIA Hopper card and nvcc; imports no JAX.
 """
 from __future__ import annotations
@@ -30,11 +37,14 @@ import time
 import numpy as np
 import torch
 
+from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import cholesky as chol
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
 from gp_emu_uqsa_torch.ops.precision import fp32_exact_matmul
-from gp_emu_uqsa_torch.tools.k4_high_variants import build_variants, time_ms
+from gp_emu_uqsa_torch.tools.k4_high_variants import (
+    build_variants, launches_ms, time_ms,
+)
 
 N, D, M, R = 16384, 8, 65536, 10
 DELTA, NUGGET = 0.8, 1e-4
@@ -96,6 +106,31 @@ MATVEC_VARIANTS = {
     "no exp": ("c = 1 - d2 (wrong answers)",
                [(_MEXP, "const float cij = 1.f - d2;")]),
 }
+_MIRROR = "constexpr bool kMirror = true;"
+_TMA = "constexpr bool kTmaStore = true;"
+_PERSISTENT = "constexpr bool kPersistent = true;"
+_TMA_STORES = "    if (tma) {\n      if (tid == 0) {"
+_THREAD_STORES = "    } else {\n      store_tile(s_d,"
+BUILD_VARIANTS = {
+    "as built": ("nothing", []),
+    "no mirror": ("K1 computes every tile and stores it once",
+                  [(_MIRROR, _MIRROR.replace("true", "false"))]),
+    "st.global.cs.v4": ("16-byte evict-first stores from the threads, not "
+                        "TMA", [(_TMA, _TMA.replace("true", "false"))]),
+    "not persistent": ("one block a tile pair",
+                       [(_PERSISTENT, _PERSISTENT.replace("true", "false"))]),
+    "no mirror, not persistent": ("both of the above",
+                                  [(_MIRROR, _MIRROR.replace("true", "false")),
+                                   (_PERSISTENT,
+                                    _PERSISTENT.replace("true", "false"))]),
+    "no stores": ("tiles built in shared memory, never stored (wrong "
+                  "answers)",
+                  [(_TMA_STORES, _TMA_STORES.replace("(tma)", "(n < 0)")),
+                   (_THREAD_STORES, _THREAD_STORES.replace(
+                       "} else {", "} else if (n < 0) {"))]),
+}
+
+
 def quad_highest(lib, xs, xt, w, splits=1):
     """quad from one variant's gp_corr_quad, launched as ops/serve.py
     launches it."""
@@ -140,18 +175,104 @@ def sampled(fn):
             max((p for _, p in samples), default=float("nan")))
 
 
-def main() -> int:
+def build_section(dev, card) -> None:
+    """K1 at n = 16384 and K2 at 256 x 16384 for each of BUILD_VARIANTS."""
+    libs = build_variants("corr_build.cu", BUILD_VARIANTS,
+                          "corr_build_kernelILb1E")
+    x = torch.as_tensor(np.random.default_rng(0).uniform(size=(N, D))
+                        .astype(np.float32), device=dev)
+    xv = torch.as_tensor(np.random.default_rng(3).uniform(size=(256, D))
+                         .astype(np.float32), device=dev)
+    delta = torch.full((D,), DELTA, dtype=torch.float32, device=dev)
+    want_a = km.gaussian_corr_self_plain(x, delta, NUGGET)
+    want_c = km.gaussian_corr_plain(xv, x, delta)
+    a = torch.empty_like(want_a)
+    c = torch.empty_like(want_c)
+    stream = _build.stream_ptr(x)
+    t_fill = launches_ms(lambda: a.fill_(1.0))
+    print(f"K1/K2 variants, K1 at n={N}, K2 at 256 x {N}, d={D} on {card}; "
+          f"fill_(1.0) of the {N}^2 output {t_fill:.4f} ms")
+
+    for name, (lib, report) in libs.items():
+        k1 = _build.entry(lib, "gp_corr_self", km._SELF_ARGTYPES)
+        k2 = _build.entry(lib, "gp_corr_cross", km._CROSS_ARGTYPES)
+        args1 = (x.data_ptr(), delta.data_ptr(), None, NUGGET, a.data_ptr(),
+                 N, D, stream)
+        args2 = (xv.data_ptr(), x.data_ptr(), delta.data_ptr(), c.data_ptr(),
+                 256, N, D, stream)
+        for fn, args in ((k1, args1), (k2, args2)):
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        t1 = launches_ms(lambda: k1(*args1))
+        t2 = launches_ms(lambda: k2(*args2))
+        e1 = float((a - want_a).abs().max())
+        e2 = float((c - want_c).abs().max())
+        print(f"  {name:26s} K1 {t1:8.4f} ms ({t1 / t_fill:.2f} of fill), "
+              f"err {e1:.3e}, symmetric {bool(torch.equal(a, a.T))}; "
+              f"K2 {t2 * 1e3:7.2f} us, err {e2:.3e}  "
+              f"[{'; '.join(report)}]  ({BUILD_VARIANTS[name][0]})")
+
+    # the host's time per call of K2's wrapper and of what it is made of, at
+    # 256 x 256 (a kernel shorter than the host's work): perf_counter around
+    # 200 back-to-back calls
+    def host_us(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / reps * 1e6
+
+    nugget = torch.tensor(NUGGET, device=dev)
+    c = torch.empty((256, 256), device=dev)
+    k2 = _build.kernel(km._SOURCE, "gp_corr_cross", km._CROSS_ARGTYPES)
+    args2 = (xv.data_ptr(), xv.data_ptr(), delta.data_ptr(), c.data_ptr(),
+             256, 256, D, stream)
+    parts = {
+        "K2 wrapper": lambda: km.gaussian_corr_fused(xv, xv, delta),
+        "K1 wrapper (n=256)": lambda: km.gaussian_corr_self_fused(
+            xv, delta, nugget),
+        "K2 C entry point": lambda: k2(*args2),
+        "torch.empty": lambda: torch.empty((256, 256), device=dev),
+        "x.to(float32)": lambda: xv.to(torch.float32),
+        "_delta_arg": lambda: km._delta_arg(delta, xv),
+        "_check_cuda": lambda: km._check_cuda("k", xv, xv, delta),
+        "stream_ptr": lambda: _build.stream_ptr(xv),
+        "current_device": torch.cuda.current_device,
+        "one PyTorch op (x * 2)": lambda: xv * 2.0,
+        "Event(enable_timing).record()": lambda: torch.cuda.Event(
+            enable_timing=True).record(),
+    }
+    print(f"  host us per call at 256 x 256 on {card}: " + ", ".join(
+        f"{name} {host_us(fn):.2f}" for name, fn in parts.items()))
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("cuda_core_variants: no CUDA device", file=sys.stderr)
         return 1
+    sections = (sys.argv[1:] if argv is None else argv) or [
+        "quad", "matvec", "build"]
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    quad_libs = build_variants("corr_quad.cu", QUAD_VARIANTS, "corr_quad_fp32")
-    matvec_libs = build_variants("corr_matvec.cu", MATVEC_VARIANTS,
-                                 f"corr_matvec_kernelILi{R}E")
+    if "build" in sections:
+        build_section(dev, card)
+        torch.cuda.empty_cache()
+    if "quad" not in sections and "matvec" not in sections:
+        print(card)
+        return 0
+    if "quad" in sections:
+        quad_libs = build_variants("corr_quad.cu", QUAD_VARIANTS,
+                                   "corr_quad_fp32")
+    if "matvec" in sections:
+        matvec_libs = build_variants("corr_matvec.cu", MATVEC_VARIANTS,
+                                     f"corr_matvec_kernelILi{R}E")
     # chip_smoke.py phase 2's data: bench.py::_problem's x, seed 0
     x = torch.as_tensor(np.random.default_rng(0).uniform(size=(N, D))
                         .astype(np.float32), device=dev)
@@ -175,40 +296,41 @@ def main() -> int:
     q64, mv64 = torch.cat(q64), torch.cat(mv64)
     del w64, c
 
-    print(f"K4 \"highest\" variants at m={M}, n={N}, d={D} on {card}")
-    for name, (lib, report) in quad_libs.items():
-        t, quad = time_ms(lambda: quad_highest(lib, xs, xt, w))
-        err = float((quad.double() - q64).abs().max())
-        print(f"  {name:16s} {t:9.2f} ms  vs fp64 {err:.3e}  "
-              f"[{'; '.join(report)}]  ({QUAD_VARIANTS[name][0]})")
-    lib = quad_libs["as built"][0]
-    (t, _), clock, power = sampled(
-        lambda: time_ms(lambda: quad_highest(lib, xs, xt, w), reps=5))
-    print(f"  as built again  {t:9.2f} ms  SM clock median {clock:.0f} MHz, "
-          f"power max {power:.1f} W")
-    c = km.gaussian_corr_fused(xq, x, delta)
-    with fp32_exact_matmul():
+    if "quad" in sections:
+        print(f"K4 \"highest\" variants at m={M}, n={N}, d={D} on {card}")
+        for name, (lib, report) in quad_libs.items():
+            t, quad = time_ms(lambda: quad_highest(lib, xs, xt, w))
+            err = float((quad.double() - q64).abs().max())
+            print(f"  {name:16s} {t:9.2f} ms  vs fp64 {err:.3e}  "
+                  f"[{'; '.join(report)}]  ({QUAD_VARIANTS[name][0]})")
+        lib = quad_libs["as built"][0]
         (t, _), clock, power = sampled(
-            lambda: time_ms(lambda: torch.matmul(c, w.T), reps=3))
-    del c
-    print(f"  cuBLAS fp32 product {t:9.2f} ms  SM clock median {clock:.0f} "
-          f"MHz, power max {power:.1f} W")
-    for splits in (1, 2, 4, 8):
-        t, _ = time_ms(lambda: quad_highest(lib, xs[:4096], xt, w, splits))
-        print(f"  as built, m=4096, {splits} splits {t:9.2f} ms")
-
-    print(f"K3 variants at m={M}, n={N}, d={D}, r={R} on {card}")
-    for name, (lib, report) in matvec_libs.items():
-        t, (out, segs) = time_ms(lambda: matvec(lib, xs, xt, rhs))
-        err = float((out.double() - mv64).abs().max())
-        print(f"  {name:16s} {t:9.4f} ms  {segs} segments  vs fp64 "
-              f"{err:.3e}  [{'; '.join(report)}]  "
-              f"({MATVEC_VARIANTS[name][0]})")
-    lib = matvec_libs["as built"][0]
-    for segs in (1, 2, 3, 4, 6, 8, 16):
-        t, (out, _) = time_ms(lambda: matvec(lib, xs, xt, rhs, segs))
-        err = float((out.double() - mv64).abs().max())
-        print(f"  as built, {segs:2d} segments {t:9.4f} ms  vs fp64 {err:.3e}")
+            lambda: time_ms(lambda: quad_highest(lib, xs, xt, w), reps=5))
+        print(f"  as built again  {t:9.2f} ms  SM clock median {clock:.0f} MHz, "
+              f"power max {power:.1f} W")
+        c = km.gaussian_corr_fused(xq, x, delta)
+        with fp32_exact_matmul():
+            (t, _), clock, power = sampled(
+                lambda: time_ms(lambda: torch.matmul(c, w.T), reps=3))
+        del c
+        print(f"  cuBLAS fp32 product {t:9.2f} ms  SM clock median {clock:.0f} "
+              f"MHz, power max {power:.1f} W")
+        for splits in (1, 2, 4, 8):
+            t, _ = time_ms(lambda: quad_highest(lib, xs[:4096], xt, w, splits))
+            print(f"  as built, m=4096, {splits} splits {t:9.2f} ms")
+    if "matvec" in sections:
+        print(f"K3 variants at m={M}, n={N}, d={D}, r={R} on {card}")
+        for name, (lib, report) in matvec_libs.items():
+            t, (out, segs) = time_ms(lambda: matvec(lib, xs, xt, rhs))
+            err = float((out.double() - mv64).abs().max())
+            print(f"  {name:16s} {t:9.4f} ms  {segs} segments  vs fp64 "
+                  f"{err:.3e}  [{'; '.join(report)}]  "
+                  f"({MATVEC_VARIANTS[name][0]})")
+        lib = matvec_libs["as built"][0]
+        for segs in (1, 2, 3, 4, 6, 8, 16):
+            t, (out, _) = time_ms(lambda: matvec(lib, xs, xt, rhs, segs))
+            err = float((out.double() - mv64).abs().max())
+            print(f"  as built, {segs:2d} segments {t:9.4f} ms  vs fp64 {err:.3e}")
     print(card)
     return 0
 

@@ -89,14 +89,19 @@ def build_variants(source: str = "corr_quad.cu", variants=None,
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        lines = log.splitlines()
-        at = next(i for i, line in enumerate(lines)
-                  if "Compiling entry function" in line and kernel in line)
-        report = [line.split("info    :")[-1].strip()
-                  for line in lines[at + 1:at + 4]
-                  if "spill" in line or "registers" in line]
-        libs[name] = (ctypes.CDLL(str(so)), report)
+        libs[name] = (ctypes.CDLL(str(so)), ptxas_report(log, kernel))
     return libs
+
+
+def ptxas_report(log: str, kernel: str) -> list[str]:
+    """ptxas's register and spill lines for the entry function whose
+    (mangled) name contains `kernel`, from nvcc's -Xptxas -v output."""
+    lines = log.splitlines()
+    at = next(i for i, line in enumerate(lines)
+              if "Compiling entry function" in line and kernel in line)
+    return [line.split("info    :")[-1].strip()
+            for line in lines[at + 1:at + 4]
+            if "spill" in line or "registers" in line]
 
 
 def launch(lib, xs, xt, w):
@@ -123,6 +128,22 @@ def time_ms(fn, reps: int = 3):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times)), out
+
+
+def launches_ms(fn, reps: int = 20) -> float:
+    """CUDA-event ms of `reps` back-to-back fn() calls, divided by reps,
+    after a warm-up: for a C entry point on preallocated buffers, the
+    kernel's time without the wrapper's host work."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def main() -> int:

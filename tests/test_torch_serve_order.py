@@ -113,16 +113,19 @@ def test_k4_split_combine_matches_pallas_highest(splits):
         rtol=5e-4, atol=5e-5)
 
 
+_VARIANTS = {"corr_quad.cu": cuda_core_variants.QUAD_VARIANTS,
+             "corr_matvec.cu": cuda_core_variants.MATVEC_VARIANTS,
+             "corr_build.cu": cuda_core_variants.BUILD_VARIANTS}
+
+
 @pytest.mark.parametrize("source, name", [
-    *(("corr_quad.cu", v) for v in sorted(cuda_core_variants.QUAD_VARIANTS)),
-    *(("corr_matvec.cu", v) for v in sorted(cuda_core_variants.MATVEC_VARIANTS)),
-])
+    (source, v) for source, variants in _VARIANTS.items()
+    for v in sorted(variants)])
 def test_cuda_core_variant_edits_match_the_source_once(source, name):
     """Each variant of the card-side timing script edits text that is in
     its source exactly once, so a change to the source cannot leave a
     variant silently equal to the body as built."""
-    variants = (cuda_core_variants.QUAD_VARIANTS if source == "corr_quad.cu"
-                else cuda_core_variants.MATVEC_VARIANTS)
+    variants = _VARIANTS[source]
     src = (_build.CSRC / source).read_text()
     for old, new in variants[name][1]:
         assert src.count(old) == 1 and old != new

@@ -47,7 +47,26 @@ each of which fails the run with a non-zero exit:
    Check the results, the fused tier against the gemm tier, the two K4
    tiers against each other, and a small fp32 card run against the fp64
    CPU path.
-4. Print the kernels JSON line, the card line, and as the last line
+4. Train at full width (n=4096, d=8, fp32, 8 restarts, data of
+   `problem`), every check collected and failing the phase at its end:
+   (a) the batched value and gradient of nll_mucm at the 8 LHC starts (K1,
+   the analytic adjoint) against the same code in fp64 on the card, within
+   budgets set by each restart's kappa(A) and capped, beside a TF32
+   backward that the budgets must reject, and the adjoint against
+   autograd in fp64; one evaluation's breakdown (torch.profiler: K1,
+   Cholesky, solves, products, the rest, the host gap), K1 alone and its
+   wrapper's host time at the fit size; (b) the same for nll_gp4ml
+   (autograd); (c)
+   Emulator.from_arrays -> train (8 L-BFGS iterations an optimize, one
+   256-row V-set, so validation runs K2), timed per optimize, iteration
+   and evaluation, its launches counted in a window of their own, the
+   final NLL against fp64; (d) fit(refine=1) and a refined solve against
+   fp64 solves (tests/test_fp32.py's n=4096 budgets); (e) one evaluation at
+   n=16384 against fp64, with the breakdown; (f) the jitter ladder per
+   restart, card against CPU, no NaN; (g) setup -> train -> final_build
+   on a copy of examples/toy-sim in a temporary directory.
+5. Print the kernels JSON line (each entry with its serving and training
+   launches), the card line, and as the last line
    {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -56,7 +75,9 @@ and prints no result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -66,14 +87,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import gp_emu_uqsa_torch.emulator as emulator_module
 from gp_emu_uqsa_torch import (
     Emulator, gp, kernels, load_emulator, params_from_numpy, save_emulator,
+    setup, train,
 )
+from gp_emu_uqsa_torch.basis import basis_matrix, linear_basis
+from gp_emu_uqsa_torch.configs import Beliefs
+from gp_emu_uqsa_torch.inference import lbfgs
 from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import cholesky as chol
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
 from gp_emu_uqsa_torch.ops.precision import fp32_exact_matmul
+from gp_emu_uqsa_torch.tools import train_linalg
 from gp_emu_uqsa_torch.tools.k4_high_variants import launches_ms, ptxas_report
 
 N_TRAIN = 16384          # training rows (BASELINE config 5)
@@ -107,6 +134,35 @@ MEAN_FP64_BUDGET = 1e-4
 # ragged shapes for K3 and K4 "highest": one past a query tile, one short of
 # a training chunk and factor tile
 M_RAGGED, N_RAGGED = 4097, 16383
+
+
+# the training phase: BASELINE.md's fit size, one restart per LHC stratum
+N_FIT = 4096
+FIT_TRIES = 8
+TRAIN_MAX_ITERS = 8      # L-BFGS iterations an optimize (the default is 200)
+TOY_MAX_ITERS = 4        # the same for the toy-sim workflow (host-bound)
+TRAIN_VALID = 256        # one V-set: tv_config (17, 16, 1) over 4352 rows
+# fp32 on the card against fp64 on the card, the same code and starts:
+# |dNLL| / max(|NLL|, 1) and |dg| / max(|g|, 1) per restart are held to
+# budgets set by the conditioning of that restart's A, as fp32 solves
+# lose kappa(A) eps32: NLL_BUDGET * kappa eps32 and GRAD_BUDGET * kappa
+# eps32, at least the floor and at most the cap (a zero or sign-flipped
+# gradient reads 1 or 2 and fails at any kappa). Each is at least 2.6x
+# the fp32 path's reading at every start of (a) and (b) and at (e)
+# (PERF.md, Training). A backward with TF32 products is run beside it as
+# the control: at the starts of (a) and (b) it must break a budget.
+EPS32 = 2.0 ** -23
+NLL_BUDGET, NLL_FLOOR, NLL_CAP = 0.02, 1e-5, 1e-2
+GRAD_BUDGET, GRAD_FLOOR, GRAD_CAP = 0.05, 5e-6, 1e-1
+BUDGETS = {
+    # the analytic adjoint against autograd, both fp64
+    "adjoint_rel": 1e-6,
+    # tests/test_fp32.py::test_fit_refine_fp32_n4096 (e after one sweep)
+    "refine_fit": 5e-4,
+    # tests/test_fp32.py::test_refined_solve_error_bound_n4096
+    "refine_solve": 1e-5,
+    "unrefined_solve": 3e-2,
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -720,6 +776,559 @@ def phase_reference(dev):
         raise SmokeFailure("fp32 card run disagrees with the fp64 CPU path")
 
 
+def _self_device_ms(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+        us = evt.self_cuda_time_total
+    return us / 1e3
+
+
+# where the card's time of a likelihood evaluation goes: the aten op that
+# launched each kernel (K1 is launched from ctypes and found by its name)
+_OP_PARTS = (
+    ("Cholesky (cholesky_ex)", ("aten::linalg_cholesky_ex",)),
+    ("triangular solves", ("aten::linalg_solve_triangular",)),
+    ("inverse (cholesky_inverse)", ("aten::cholesky_inverse",)),
+    ("products", ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
+                  "aten::mv", "aten::dot")),
+)
+
+
+def device_profile(fn):
+    """fn() once under torch.profiler: (device busy ms, {part: device ms}),
+    or (None, None) when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels_ = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels_:
+        return None, None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels_)
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    parts = {"K1 (corr_build_kernel)": sum(
+        e.time_range.end - e.time_range.start for e in kernels_
+        if "corr_build_kernel" in e.name) / 1e3}
+    by_op = {e.key: _self_device_ms(e) for e in prof.key_averages()}
+    for part, ops in _OP_PARTS:
+        parts[part] = sum(by_op.get(op, 0.0) for op in ops)
+    parts["elementwise and other"] = busy / 1e3 - sum(parts.values())
+    return busy / 1e3, parts
+
+
+def wall_ms(fn, reps: int = 3):
+    """Median host-clock time of fn() ending in a synchronize, after one
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def evaluation_breakdown(label, objective, u, card):
+    """Time one value-and-gradient of the batched objective and its forward
+    alone; print where the card's time goes and the host gap."""
+    t_vg = wall_ms(lambda: lbfgs.value_and_grad(objective, u))
+
+    def forward():
+        with torch.no_grad():
+            objective(u)
+    t_fwd = wall_ms(forward)
+    print(f"  {label}: value and gradient {t_vg:.2f} ms, forward alone "
+          f"{t_fwd:.2f} ms (host clock, median of 3; {card})")
+    out = {"eval_ms": t_vg, "forward_ms": t_fwd}
+    for name, fn, wall in (("forward", forward, t_fwd),
+                           ("value and gradient",
+                            lambda: lbfgs.value_and_grad(objective, u), t_vg)):
+        busy, parts = device_profile(fn)
+        if busy is None:
+            print(f"    {name}: device breakdown not measured (the "
+                  "profiler's trace holds no device activity)")
+            continue
+        text = ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        print(f"    {name}: card busy {busy:.3f} ms of {wall:.3f} ms (host "
+              f"gap {wall - busy:.3f} ms, {100 * (1 - busy / wall):.1f}%): "
+              f"{text} ms")
+        out[name] = (busy, parts)
+    return out
+
+
+def kappa_fp64(a64, iters: int = 30):
+    """kappa(A) of each matrix of an fp64 batch (..., n, n): power iteration
+    for lambda_max, inverse iteration through the Cholesky factor for
+    lambda_min. Both approach from inside, so kappa is underestimated and
+    the budgets it sets err tight."""
+    l = torch.linalg.cholesky(a64)
+    gen = torch.Generator(device=a64.device).manual_seed(0)
+    v = torch.randn(a64.shape[:-1] + (1,), generator=gen, dtype=a64.dtype,
+                    device=a64.device)
+    w = v.clone()
+    for _ in range(iters):
+        v = a64 @ v
+        v = v / v.norm(dim=-2, keepdim=True)
+        w = torch.cholesky_solve(w, l)
+        w = w / w.norm(dim=-2, keepdim=True)
+    lmax = (v.mT @ (a64 @ v))[..., 0, 0]
+    lmin = (w.mT @ (a64 @ w))[..., 0, 0]
+    return lmax / lmin
+
+
+def fp32_budgets(kappa):
+    """(NLL budget, gradient budget) per restart from kappa(A)."""
+    k = kappa * EPS32
+    return (torch.clamp(NLL_BUDGET * k, min=NLL_FLOOR, max=NLL_CAP),
+            torch.clamp(GRAD_BUDGET * k, min=GRAD_FLOOR, max=GRAD_CAP))
+
+
+def _tf32(fn):
+    """fn's undecorated body (`fp32_exact` keeps it as __wrapped__) with
+    TF32 products."""
+    body = getattr(fn, "__wrapped__", fn)
+
+    def run(*args, **kwargs):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        return body(*args, **kwargs)
+    return run
+
+
+def value_and_grad_tf32_backward(objective, u):
+    """The control: lbfgs.value_and_grad with the forward as the port runs
+    it and every backward (the analytic adjoints, `_chol_rev`, autograd's
+    own) with TF32 products, the error that `fp32_exact` on the backward
+    exists to prevent."""
+    patched = ((gp, "_nll_mucm_bwd"), (chol, "_chol_rev"),
+               (kernels, "_gaussian_self_grads"),
+               (kernels, "_gaussian_cross_grads"))
+    saved = [getattr(mod, name) for mod, name in patched]
+    flags = torch.backends.cuda.matmul
+    flag = flags.allow_tf32
+    with torch.enable_grad():
+        u = u.detach().requires_grad_(True)
+        v = objective(u)
+        try:
+            for mod, name in patched:
+                setattr(mod, name, _tf32(getattr(mod, name)))
+            flags.allow_tf32 = True
+            (g,) = torch.autograd.grad(v.sum(), u)
+        finally:
+            for (mod, name), fn in zip(patched, saved):
+                setattr(mod, name, fn)
+            flags.allow_tf32 = flag
+    v = v.detach()
+    return v, torch.where(torch.isfinite(v)[:, None], g, torch.zeros_like(g))
+
+
+def hold_fp32(name, v32, g32, v64, g64, kappa, failures, control,
+              must_catch=True):
+    """Print the fp32 errors beside their budgets; record any miss. Print
+    the errors of `control` (the gradients of a TF32 backward) too, and
+    with `must_catch` record a failure unless one breaks its budget."""
+    nll_err, grad_err = rel_errors(v32, g32, v64, g64)
+    nll_b, grad_b = fp32_budgets(kappa)
+    fmt = lambda t: "[" + ", ".join(f"{v:.3e}" for v in t.tolist()) + "]"
+    print(f"    {name}: kappa(A) {fmt(kappa)}")
+    print(f"      NLL rel err {fmt(nll_err)} (budgets {fmt(nll_b)})")
+    print(f"      gradient rel err {fmt(grad_err)} (budgets {fmt(grad_b)})")
+    bad = (nll_err > nll_b) | (grad_err > grad_b)
+    if bool(bad.any()):
+        failures.append(f"{name}: fp32 vs fp64 over budget at restarts "
+                        f"{torch.nonzero(bad).flatten().tolist()}")
+    ctrl = rel_errors(v32, control, v64, g64)[1]
+    caught = ctrl > grad_b
+    print(f"      control, TF32 backward: gradient rel err {fmt(ctrl)} "
+          f"(over budget at restarts "
+          f"{torch.nonzero(caught).flatten().tolist()})")
+    if must_catch and not bool(caught.any()):
+        failures.append(f"{name}: the budgets pass a TF32 backward")
+
+
+def rel_errors(v32, g32, v64, g64):
+    """Per restart: |NLL32 - NLL64| / max(|NLL64|, 1) and |g32 - g64| /
+    max(|g64|, 1): relative where the value or the gradient is large,
+    absolute where it is flat."""
+    v32, g32 = v32.double(), g32.double()
+    nll = (v32 - v64).abs() / v64.abs().clamp(min=1.0)
+    grad = (g32 - g64).norm(dim=-1) / g64.norm(dim=-1).clamp(min=1.0)
+    return nll, grad
+
+
+def phase_train_gradients(dev, card, failures):
+    """(a), (b): batched value and gradient at the 8 LHC starts, fp32 (K1,
+    the analytic adjoint, the ladder) against fp64 on the card (the plain
+    build), and the analytic adjoint against autograd in fp64."""
+    x_np, y_np = problem(N_FIT)
+    x32 = torch.as_tensor(x_np, device=dev)
+    y32 = torch.as_tensor(y_np, device=dev)
+    spec = linear_basis(DIM)
+    h32 = basis_matrix(x32, spec)
+    x64, y64, h64 = x32.double(), y32.double(), h32.double()
+    out = {}
+    for mode in ("mucm", "gp4ml"):
+        cfg = lbfgs.MLEConfig(mode=mode, tries=FIT_TRIES, nugget=NUGGET)
+        lo, hi = lbfgs._default_bounds(cfg, DIM)
+        z0 = lbfgs._lhc_starts(torch.Generator().manual_seed(0), FIT_TRIES,
+                               lo, hi, torch.float64).to(dev)
+        obj32, _, _ = lbfgs._make_objective(x32, y32, h32, cfg, lo, hi)
+        obj64, to64, from64 = lbfgs._make_objective(x64, y64, h64, cfg, lo,
+                                                    hi)
+        u64 = from64(z0)
+        u32 = u64.float()
+        reset_counters()
+        v32, g32 = lbfgs.value_and_grad(obj32, u32)
+        torch.cuda.synchronize()
+        k1 = counters()["K1"]
+        v64, g64 = lbfgs.value_and_grad(obj64, u64)
+        p64 = lbfgs._unpack(to64(u64), cfg, DIM, torch.float64)
+        p32 = kernels.GPParams(*(t.float() for t in p64))
+        with torch.no_grad():
+            jit32 = gp._common(p32, x32, y32, h32)[2]
+            jit64 = gp._common(p64, x64, y64, h64)[2]
+        kappa = kappa_fp64(kernels.corr_self(x64, p64))
+        print(f"  ({'a' if mode == 'mucm' else 'b'}) nll_{mode} at {FIT_TRIES} "
+              f"LHC starts, n={N_FIT}, d={DIM}: K1 launches {k1}; fp32 "
+              f"jitter {jit32.tolist()}, fp64 jitter {jit64.tolist()}")
+        print(f"    NLL fp64 {v64.tolist()}; |gradient| fp64 "
+              f"{g64.norm(dim=-1).tolist()}")
+        ctrl = value_and_grad_tf32_backward(obj32, u32)[1]
+        hold_fp32("fp32 vs fp64", v32, g32, v64, g64, kappa, failures, ctrl)
+        if not bool(torch.isfinite(v64).all()):
+            failures.append(f"nll_{mode}: non-finite fp64 NLL")
+        if not torch.equal(jit32.double(), jit64):
+            failures.append(f"nll_{mode}: the fp32 ladder took another rung")
+        if k1 < FIT_TRIES:
+            failures.append(f"nll_{mode}: K1 launched {k1} times for "
+                            f"{FIT_TRIES} restarts")
+        if mode == "mucm":
+            # the analytic adjoint against autograd through the factor
+            def obj_ad(u):
+                params = lbfgs._unpack(to64(u), cfg, DIM, torch.float64)
+                return gp.nll_mucm_ad(params, x64, y64, h64)
+            va, ga = lbfgs.value_and_grad(obj_ad, u64)
+            adj = (g64 - ga).norm(dim=-1) / ga.norm(dim=-1).clamp(min=1.0)
+            print(f"    analytic adjoint vs autograd (fp64): gradient rel "
+                  f"err {adj.tolist()} (budget {BUDGETS['adjoint_rel']:g})")
+            if float(adj.max()) > BUDGETS["adjoint_rel"]:
+                failures.append(f"adjoint vs autograd: {float(adj.max()):.3e}")
+            out["breakdown"] = evaluation_breakdown(
+                f"one evaluation, n={N_FIT}, {FIT_TRIES} restarts, fp32",
+                obj32, u32, card)
+            out["k1_fit"] = k1_at_fit_size(x32, card)
+    del x32, x64
+    torch.cuda.empty_cache()
+    return out
+
+
+def k1_at_fit_size(x, card):
+    """K1 at the fit size: the kernel alone (C entry point, 20 back-to-back
+    launches) and the wrapper's host time a call (perf_counter over 200
+    calls into one preallocated output, no wait for the card)."""
+    delta = torch.full((DIM,), DELTA, dtype=torch.float32, device=x.device)
+    nugget = torch.tensor(NUGGET, dtype=torch.float32, device=x.device)
+    out = km.gaussian_corr_self_fused(x, delta, nugget)
+    alone = launches_ms(self_entry(x, delta, nugget, out))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        km.gaussian_corr_self_fused(x, delta, nugget, out=out)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f"    K1 at n={x.shape[0]}: {alone * 1e3:.2f} us alone, wrapper host "
+          f"time {host_us:.2f} us a call ({card})")
+    return alone, host_us
+
+
+class _OptimizeLog:
+    """Wraps the emulator's mle_fit: time, iterations and objective
+    evaluations of every optimize (the objective is gp.nll)."""
+
+    def __init__(self):
+        self.runs = []
+        self.evals = 0      # objective calls (each on the running restarts)
+        self.rows = 0       # restart evaluations in them
+
+    def __enter__(self):
+        self._fit, self._nll = emulator_module.mle_fit, gp.nll
+
+        def nll(params, *args, **kwargs):
+            self.evals += 1
+            self.rows += params.log_nugget.numel()
+            return self._nll(params, *args, **kwargs)
+
+        def fit(*args, **kwargs):
+            evals0, rows0 = self.evals, self.rows
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, info = self._fit(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.runs.append({"s": time.perf_counter() - t0,
+                              "n": args[1].shape[0],
+                              "iters": int(info["iters"].max()),
+                              "evals": self.evals - evals0,
+                              "rows": self.rows - rows0,
+                              "nlls": info["nlls"].tolist(),
+                              "best": float(info["best_nll"]),
+                              "params": params})
+            return params, info
+
+        emulator_module.mle_fit, gp.nll = fit, nll
+        return self
+
+    def __exit__(self, *exc):
+        emulator_module.mle_fit, gp.nll = self._fit, self._nll
+
+
+def phase_train_path(dev, card, failures):
+    """(c) Emulator.from_arrays -> train at n = 4096 (+ one 256-row V-set),
+    fp32, 8 restarts, counted in a launch window of its own."""
+    n_all = N_FIT + TRAIN_VALID
+    x_np, y_np = problem(n_all)
+    emul = Emulator.from_arrays(x_np, y_np, tv_config=(17, 16, 1),
+                                tries=FIT_TRIES, nugget=NUGGET,
+                                dtype=torch.float32, device=dev, seed=0)
+    emul.mle_config = dataclasses.replace(emul.mle_config,
+                                          max_iters=TRAIN_MAX_ITERS)
+    if emul.train_view()[0].shape[0] != N_FIT:
+        raise SmokeFailure("training set is not 4096 rows")
+    reset_counters()
+    with _OptimizeLog() as log:
+        t0 = time.perf_counter()
+        train(emul)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = counters()
+    print(f"  (c) train: {total_s:.2f} s for {len(log.runs)} optimize calls "
+          f"and one validation; launches in the training window: "
+          f"{launches} ({card})")
+    for run in log.runs:
+        iters = max(run["iters"], 1)
+        print(f"    optimize n={run['n']}: {run['s'] * 1e3:.1f} ms, "
+              f"{run['iters']} L-BFGS iterations ({run['s'] * 1e3 / iters:.1f}"
+              f" ms each), {run['evals']} objective evaluations "
+              f"({run['s'] * 1e3 / max(run['evals'], 1):.2f} ms each, "
+              f"{run['rows']} restart evaluations in them); "
+              f"best NLL {run['best']:.6g}; finite restarts "
+              f"{sum(np.isfinite(run['nlls']))}/{len(run['nlls'])}")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        failures.append(f"training window: K1 and K2 must launch: {launches}")
+    last = log.runs[-1]
+    if not np.isfinite(last["best"]) or sum(np.isfinite(last["nlls"])) < 2:
+        failures.append(f"train: best NLL {last['best']}, restarts "
+                        f"{last['nlls']}")
+    # the best NLL against fp64 at the same parameters on the same rows
+    x, y, h = emul.train_view()
+    p64 = kernels.GPParams(*(t.double() for t in last["params"]))
+    nll64 = float(gp.nll_mucm(p64, x.double(), y.double(), h.double()))
+    rel = abs(last["best"] - nll64) / max(abs(nll64), 1.0)
+    budget = float(fp32_budgets(kappa_fp64(kernels.corr_self(x.double(),
+                                                              p64)))[0])
+    print(f"    final NLL fp32 {last['best']:.8g} vs fp64 at the same "
+          f"parameters {nll64:.8g}: rel err {rel:.3e} (budget {budget:.3e}); "
+          f"delta {torch.exp(last['params'].log_delta).tolist()}")
+    if rel > budget:
+        failures.append(f"train: final NLL {rel:.3e} from fp64")
+    mean, var = emul.predict(x_np[:1000])
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and float(var.min()) >= 0):
+        failures.append("trained emulator: non-finite or negative prediction")
+    del emul
+    torch.cuda.empty_cache()
+    return launches, log.runs
+
+
+def _clustered_system(n, d=4, nugget=1e-2, seed=3):
+    """tests/test_fp32.py::_clustered_kernel_system's inputs and its y."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(size=(n // 2, d))
+    x = np.vstack([base, base + 1e-3 * rng.standard_normal((n // 2, d))])
+    rng = np.random.default_rng(7)
+    y = np.sin(3 * x[:, 0]) + x[:, 1] * x[:, 2] + 0.05 * rng.standard_normal(n)
+    return x, y, np.full(d, 1.2), nugget
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want).norm() / want.norm())
+
+
+def phase_refine(dev, failures):
+    """(d) fp32 iterative refinement (fp64 residual, corrections through
+    the fp64 factor) at n = 4096, held to tests/test_fp32.py's budgets for
+    the JAX package's compensated one: gp.fit(refine=1) (K1's A, cuSOLVER's
+    factor) against the fp64 solve of the same A, and one sweep of
+    cho_solve_refined on that test's fp32-rounded system."""
+    x, y, delta, nugget = _clustered_system(N_FIT)
+    x32 = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    y32 = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    h32 = basis_matrix(x32, linear_basis(4))
+    p32 = kernels.make_params(delta, nugget=nugget, device=dev)
+    st0 = gp.fit(p32, x32, y32, h32)
+    st1 = gp.fit(p32, x32, y32, h32, refine=1)
+    a64 = kernels.corr_self(x32, p32).double()
+    l64 = torch.linalg.cholesky(a64)
+    beta = st1.beta.double()
+    e64 = torch.cholesky_solve((y32.double() - h32.double() @ beta)[:, None],
+                               l64)[:, 0]
+    ah64 = torch.cholesky_solve(h32.double(), l64)
+    err_e = [_rel(st.e, e64) for st in (st0, st1)]
+    err_ah = [_rel(st.ainv_h, ah64) for st in (st0, st1)]
+    print(f"  (d) fit(refine=1), fp32, n={N_FIT}: jitter {float(st1.jitter)}; "
+          f"against the fp64 solve of the same A: e {err_e[0]:.3e} -> "
+          f"{err_e[1]:.3e} (budget {BUDGETS['refine_fit']:g} and < "
+          f"unrefined / 5), A^-1 H {err_ah[0]:.3e} -> {err_ah[1]:.3e}")
+    if not torch.equal(st0.beta, st1.beta):
+        failures.append("refine changed beta")
+    if not (err_e[1] <= BUDGETS["refine_fit"] and err_e[1] < err_e[0] / 5):
+        failures.append(f"fit(refine=1): e {err_e}")
+    del a64, l64
+    # the solve-level contract: the system of _clustered_kernel_system
+    # (matmul-expansion build in fp64, rounded to fp32), a random b
+    a32, b32 = train_linalg.refine_system(N_FIT, dev)
+    x_true = torch.linalg.solve(a32.double(), b32.double())
+    l32, jit = chol.cholesky_with_jitter(a32)
+    x0 = chol.cho_solve(l32, b32[:, None])[:, 0]
+    x1 = chol.cho_solve_refined(l32, a32, b32[:, None], iters=1)[:, 0]
+    err0, err1 = _rel(x0, x_true), _rel(x1, x_true)
+    print(f"      cho_solve_refined of the fp32-rounded system: jitter "
+          f"{float(jit)}, unrefined {err0:.3e} (budget "
+          f"{BUDGETS['unrefined_solve']:g}), one sweep {err1:.3e} (budget "
+          f"{BUDGETS['refine_solve']:g} and < unrefined / 10)")
+    if not (float(jit) == 0.0 and err0 <= BUDGETS["unrefined_solve"]
+            and err1 <= BUDGETS["refine_solve"] and err1 < err0 / 10):
+        failures.append(f"refined solve: {err0:.3e} -> {err1:.3e}, jitter "
+                        f"{float(jit)}")
+    del a32, l32
+    torch.cuda.empty_cache()
+
+
+def phase_train_serving_width(dev, card, failures):
+    """(e) one value and gradient at the serving width n = 16384, B = 1,
+    fp32 against fp64 on the card, with the breakdown."""
+    x_np, y_np = problem(N_TRAIN)
+    x32 = torch.as_tensor(x_np, device=dev)
+    y32 = torch.as_tensor(y_np, device=dev)
+    h32 = basis_matrix(x32, linear_basis(DIM))
+    cfg = lbfgs.MLEConfig(nugget=NUGGET, constraints="none")
+    z = torch.tensor([[np.log(DELTA)] * DIM], dtype=torch.float64, device=dev)
+    lo, hi = lbfgs._default_bounds(cfg, DIM)
+    obj32, _, _ = lbfgs._make_objective(x32, y32, h32, cfg, lo, hi)
+    v32, g32 = lbfgs.value_and_grad(obj32, z.float())
+    ctrl = value_and_grad_tf32_backward(obj32, z.float())[1]
+    out = evaluation_breakdown(f"(e) one evaluation, n={N_TRAIN}, 1 restart, "
+                               "fp32", obj32, z.float(), card)
+    torch.cuda.empty_cache()
+    x64 = x32.double()
+    obj64, _, _ = lbfgs._make_objective(x64, y32.double(), h32.double(), cfg,
+                                        lo, hi)
+    v64, g64 = lbfgs.value_and_grad(obj64, z)
+    print(f"    NLL fp32 {float(v32):.8g}, fp64 {float(v64):.8g}")
+    kappa = kappa_fp64(kernels.corr_self(
+        x64, lbfgs._unpack(z, cfg, DIM, torch.float64)))
+    # at this kappa the TF32 backward reads no worse than the fp32 one
+    hold_fp32(f"n={N_TRAIN}, fp32 vs fp64", v32, g32, v64, g64, kappa,
+              failures, ctrl, must_catch=False)
+    del x32, x64, obj32, obj64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ladder(dev, failures):
+    """(f) a batch in which some restarts need jitter (duplicated rows, a
+    tiny nugget, long length scales) and others do not: per-restart rungs
+    as on the CPU for the same A, no NaN, finite gradients."""
+    x_np, y_np = problem(1024, seed=5)
+    x_np = np.vstack([x_np, x_np[:1024]])          # every row twice
+    y_np = np.concatenate([y_np, y_np[:1024]])
+    x = torch.as_tensor(x_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    h = basis_matrix(x, linear_basis(DIM))
+    log_delta = torch.log(torch.tensor(
+        [[0.05] * DIM, [2.0] * DIM, [0.1] * DIM, [4.0] * DIM], device=dev))
+    log_nugget = torch.log(torch.tensor([1e-3, 1e-9, 1e-2, 1e-9],
+                                        device=dev))
+    params = kernels.GPParams(log_delta.requires_grad_(True),
+                              torch.zeros(4, device=dev),
+                              log_nugget.requires_grad_(True))
+    a = kernels.corr_self(x, params).detach()
+    l, jit = chol.cholesky_with_jitter(a)
+    _, jit_cpu = chol.cholesky_with_jitter(a.cpu())
+    v = gp.nll_mucm(params, x, y, h)
+    gd, gn = torch.autograd.grad(v.sum(), (params.log_delta,
+                                           params.log_nugget))
+    print(f"  (f) ladder, n={x.shape[0]} with every row twice, 4 restarts: "
+          f"jitter on the card {jit.tolist()}, on the CPU for the same A "
+          f"{jit_cpu.tolist()}; NLL {v.tolist()}")
+    ok = (bool(torch.isfinite(l).all()) and bool(torch.isfinite(v).all())
+          and bool(torch.isfinite(gd).all()) and bool(torch.isfinite(gn).all()))
+    if not ok:
+        failures.append("ladder: NaN or inf in the factor, NLL or gradient")
+    if not torch.equal(jit.cpu(), jit_cpu):
+        failures.append(f"ladder: rungs {jit.tolist()} on the card, "
+                        f"{jit_cpu.tolist()} on the CPU")
+    if not (float(jit[0]) == 0.0 and float(jit[1]) > 0.0):
+        failures.append(f"ladder: expected restart 0 healthy and 1 jittered: "
+                        f"{jit.tolist()}")
+    del a, l
+    torch.cuda.empty_cache()
+
+
+def phase_workflow(dev, failures):
+    """(g) setup -> train -> final_build on a copy of examples/toy-sim in a
+    temporary directory (final_build writes beside its inputs)."""
+    src = Path(__file__).resolve().parent / "examples" / "toy-sim"
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp) / "toy-sim"
+        shutil.copytree(src, work)
+        emul = setup(work / "toy-sim_config", device=dev, dtype=torch.float32)
+        emul.mle_config = dataclasses.replace(emul.mle_config,
+                                              max_iters=TOY_MAX_ITERS)
+        t0 = time.perf_counter()
+        train(emul)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        written = sorted(p.name for p in work.iterdir() if p.name.endswith("-f"))
+        bel = Beliefs.from_file(work / "toy-sim_beliefs-f")
+        mean, var = emul.predict(np.linspace(0.05, 1.95, 60)[:, None])
+        truth = 3.0 * np.linspace(0.05, 1.95, 60) * np.sin(
+            5.0 * np.pi * np.linspace(0.05, 1.95, 60) / 2.0)
+        rmse = float(np.sqrt(np.mean((mean.double().cpu().numpy() - truth)
+                                     ** 2)))
+    print(f"  (g) setup -> train -> final_build on toy-sim (n=40, d=1): "
+          f"{t:.2f} s; wrote {written}; delta {bel.delta}, RMSE against the "
+          f"simulator {rmse:.3e} (< 0.05)")
+    if written != ["toy-sim_beliefs-f", "toy-sim_input-f", "toy-sim_output-f"]:
+        failures.append(f"final_build wrote {written}")
+    if not (rmse < 0.05 and bool(torch.isfinite(var).all())):
+        failures.append(f"toy-sim emulator RMSE {rmse}")
+
+
+def phase_train(dev, card):
+    """Phase 4: the training path at full width. Every check is collected
+    and the phase fails at its end if any failed."""
+    print(f"[phase 4] training path, n={N_FIT}, d={DIM}, fp32, "
+          f"tries={FIT_TRIES} ({card})")
+    failures = []
+    grads = phase_train_gradients(dev, card, failures)
+    launches, runs = phase_train_path(dev, card, failures)
+    phase_refine(dev, failures)
+    wide = phase_train_serving_width(dev, card, failures)
+    phase_ladder(dev, failures)
+    phase_workflow(dev, failures)
+    if failures:
+        raise SmokeFailure("phase 4: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -759,6 +1368,7 @@ def main() -> int:
     rows = phase_kernels(dev, peaks, card)
     launches, launches_highest = phase_serve(dev, card)
     phase_reference(dev)
+    launches_train = phase_train(dev, card)
 
     where = {
         "K1": ("gaussian_corr_self", "gp_emu_uqsa_torch/csrc/corr_build.cu",
@@ -776,11 +1386,14 @@ def main() -> int:
     }
     launches = {**launches, "K4 high": launches["K4"],
                 "K4 highest": launches_highest}
+    launches_train = {**launches_train, "K4 high": launches_train["K4"],
+                      "K4 highest": launches_train["K4"]}
     entries = []
     for key, (name, source, replaces) in where.items():
         err, t, t_wrap, tp, (b, by), lib = rows[key]
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
+                        "training_launches": launches_train[key],
                         "max_abs_err": err, "ms": t, "wrapper_ms": t_wrap,
                         "plain_ms": tp, "bound_ms": b, "bound_by": by,
                         "library_ms": lib})

@@ -3,22 +3,26 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of `gp_emu_uqsa_tpu` (the JAX package, which stays the reference):
 same module and function names, plain PyTorch around four kernels written
-for `sm_90a`. This slice carries the serving path: load a trained
-emulator, refit it at fixed hyperparameters, predict mean and variance and
-validate against held-out sets.
+for `sm_90a`. It carries the training path (config files, multi-restart
+maximum likelihood with the analytic adjoint, validation, written beliefs)
+and the serving path (refit at fixed hyperparameters, mean and variance,
+validation against held-out sets).
 
     import gp_emu_uqsa_torch as g
-    emul = g.load_emulator("ckpt", device="cuda", dtype=torch.float32)
+    emul = g.setup("toy-sim_config", device="cuda", dtype=torch.float32)
+    g.train(emul)
     mean, var = emul.predict(x_new)
+
+    emul = g.load_emulator("ckpt", device="cuda", dtype=torch.float32)
 
 Entry points run on the CUDA card unless given device="cpu"; without a
 card they raise. The package imports neither jax nor gp_emu_uqsa_tpu.
 """
-from gp_emu_uqsa_torch.emulator import Emulator
+from gp_emu_uqsa_torch.emulator import Emulator, final_build, setup, train
 from gp_emu_uqsa_torch.configs import Beliefs, Config
 from gp_emu_uqsa_torch.kernels import GPParams, make_params, params_from_numpy
 from gp_emu_uqsa_torch.basis import BasisSpec, basis_matrix, linear_basis, const_basis
-from gp_emu_uqsa_torch.inference import MLEConfig
+from gp_emu_uqsa_torch.inference import MLEConfig, mle_fit
 from gp_emu_uqsa_torch.utils.checkpoint import load_emulator, save_emulator
 from gp_emu_uqsa_torch import gp
 
@@ -27,5 +31,6 @@ __version__ = "0.1.0"
 __all__ = [
     "Emulator", "Beliefs", "Config", "GPParams", "make_params",
     "params_from_numpy", "BasisSpec", "basis_matrix", "linear_basis",
-    "const_basis", "MLEConfig", "load_emulator", "save_emulator", "gp",
+    "const_basis", "MLEConfig", "mle_fit", "load_emulator", "save_emulator",
+    "gp", "setup", "train", "final_build",
 ]

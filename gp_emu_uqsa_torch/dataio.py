@@ -6,8 +6,9 @@ manager"): optional row shuffle, optional min-max scaling of inputs to
 n/n_sets rows each, starting at `first_V_set`.
 
 Host-side NumPy, as in the JAX package: arrays become tensors at the
-emulator boundary. The file readers (`load_matrix`/`save_matrix` and the C
-loader) belong to the file-driven `setup()` path and are not ported yet.
+emulator boundary. `load_matrix` reads the reference's whitespace text
+matrices with the port's C loader (`native/`), or `np.loadtxt` where no C
+compiler exists.
 """
 from __future__ import annotations
 
@@ -15,6 +16,25 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+def load_matrix(path) -> np.ndarray:
+    """Load a whitespace-separated numeric matrix (reference data format).
+
+    The C parser (`native.load_matrix_native`, one strtod pass) where it
+    builds, else np.loadtxt; both with loadtxt's defaults ('#' comments,
+    blank lines skipped). Always 2-D float64.
+    """
+    from gp_emu_uqsa_torch import native
+
+    arr = native.load_matrix_native(path)
+    if arr is None:
+        arr = np.loadtxt(str(path), dtype=np.float64, ndmin=2)
+    return arr
+
+
+def save_matrix(path, arr) -> None:
+    np.savetxt(str(path), np.asarray(arr), fmt="%.12g")
 
 
 def minmax_scale(x: np.ndarray, minmax: Optional[list] = None):

@@ -1,13 +1,19 @@
-"""Emulator facade, serving half (port of `gp_emu_uqsa_tpu.emulator`).
+"""Emulator facade: setup / train / final_build and serving (port of
+`gp_emu_uqsa_tpu.emulator`).
 
-    emul = load_emulator("ckpt", device="cuda", dtype=torch.float32)
+    emul = setup("toy-sim_config", device="cuda", dtype=torch.float32)
+    train(emul)                  # optimize -> validate -> fold -> final_build
     mean, var = emul.predict(x_new)
-    diag = emul.validate_against(0)
 
-The training half (`optimize`, `setup`, `train`, `final_build`,
-`train_bayes`, `predict_bayes`) comes with the training slice; a trained
-emulator reaches the port through a checkpoint (`utils.checkpoint`) or
-through `params_from_numpy` and `gp.fit`.
+or, without files, `Emulator.from_arrays(x, y, ...).train_full()`; a
+trained emulator also loads from a checkpoint (`utils.checkpoint`).
+
+`train` reproduces the reference workflow: multi-restart MLE on the T set
+(`optimize`, `inference.mle_fit`), validation against each V set, fold the
+V set into T and retrain, then `final_build` on all data, which writes the
+updated beliefs and the reordered inputs/outputs ("-f" suffix) beside the
+files it read. The Bayesian half (`train_bayes`, `predict_bayes`) is not
+ported yet.
 
 Serving tiers (`predict(serve=...)`), named after what they run:
 
@@ -22,6 +28,7 @@ Serving tiers (`predict(serve=...)`), named after what they run:
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -29,10 +36,14 @@ import torch
 
 from gp_emu_uqsa_torch import gp
 from gp_emu_uqsa_torch._device import resolve_device
-from gp_emu_uqsa_torch.basis import BasisSpec, basis_matrix, basis_strings, linear_basis
+from gp_emu_uqsa_torch.basis import (
+    BasisSpec, basis_matrix, basis_strings, linear_basis, parse_basis_strings,
+)
 from gp_emu_uqsa_torch.configs import Beliefs, Config
-from gp_emu_uqsa_torch.dataio import DataSplits, make_splits
-from gp_emu_uqsa_torch.inference import MLEConfig
+from gp_emu_uqsa_torch.dataio import (
+    DataSplits, load_matrix, make_splits, save_matrix,
+)
+from gp_emu_uqsa_torch.inference import MLEConfig, mle_fit
 from gp_emu_uqsa_torch.kernels import GPParams
 from gp_emu_uqsa_torch.ops.kernel_matrix import MAX_D
 from gp_emu_uqsa_torch.ops.serve import serve_meanvar_batched
@@ -41,6 +52,18 @@ _MIN_NUGGET = 1e-10
 _FUSED_AUTO_MIN_M = 1024   # smaller query batches stay on the gemm tier
 _FUSED_BATCH = 131072      # query chunk of the fused tier
 SERVE_TIERS = ("auto", "fused", "gemm")
+
+
+def _bounds_pair(bounds_list, d):
+    """Reference per-dim [(lo,hi),...] bounds -> (lo_vec, hi_vec) arrays."""
+    if bounds_list is None:
+        return None
+    arr = np.asarray(bounds_list, dtype=np.float64)
+    if arr.ndim == 1:
+        arr = arr[None, :]
+    if len(arr) == 1:
+        arr = np.repeat(arr, d, axis=0)
+    return arr[:, 0], arr[:, 1]
 
 
 @dataclasses.dataclass
@@ -154,6 +177,36 @@ class Emulator:
 
     def valid_view(self, k):
         return self._xy(self.splits.v_rows(k))
+
+    # ----- fitting --------------------------------------------------------
+
+    def optimize(self, generator: Optional[torch.Generator] = None,
+                 message=False):
+        """Multi-restart MLE on the current training set, then `gp.fit`.
+
+        The LHC starts come from `generator`, by default a CPU
+        torch.Generator seeded with seed + n_folded (the JAX package seeds
+        its key the same way; the draws differ). Returns mle_fit's info.
+        """
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.seed + self.n_folded)
+        x, y, h = self.train_view()
+        self.params, info = mle_fit(generator, x, y, h, self.mle_config)
+        self.state = gp.fit(self.params, x, y, h, mode=self.mle_config.mode,
+                            family=self.mle_config.family)
+        if message:
+            nlls = info["nlls"].cpu().numpy()
+            print(
+                f"[optimize] n={len(y)} restarts={self.mle_config.tries} "
+                f"best NLL={float(info['best_nll']):.6g} "
+                f"(finite restarts: {np.isfinite(nlls).sum()}/{len(nlls)}) "
+                f"delta={torch.exp(self.params.log_delta).cpu().numpy()}"
+            )
+        return info
+
+    def train_full(self, message: bool = False) -> "Emulator":
+        """Idiomatic one-call training on all data (== final_build)."""
+        return final_build(self, message=message)
 
     # ----- validation -----------------------------------------------------
 
@@ -284,3 +337,99 @@ class Emulator:
         out.basis_str, out.basis_inf = basis_strings(self.spec)
         out.kernel = f"{self.mle_config.family}()"
         return out
+
+
+def setup(
+    config_file,
+    datashuffle: bool = True,
+    scaleinputs: bool = True,
+    *,
+    dtype=torch.float64,
+    device=None,
+    seed: int = 0,
+) -> Emulator:
+    """Build an Emulator from a reference-format config file.
+
+    Mirrors `g.setup(config_file, datashuffle=..., scaleinputs=...)`.
+    `device=None` means the CUDA card (raises without one); dtype
+    float32 on the card is the configuration that takes the kernels.
+    """
+    cfg = Config.from_file(config_file)
+    bel = Beliefs.from_file(cfg.beliefs)
+    x_raw = load_matrix(cfg.inputs)
+    y_raw = load_matrix(cfg.outputs)
+    y = (y_raw[:, bel.output] if y_raw.ndim == 2 and y_raw.shape[1] > 1
+         else y_raw.ravel())
+    active = bel.active
+    x = x_raw if active is None else x_raw[:, active]
+    d = x.shape[1]
+
+    spec = parse_basis_strings(bel.basis_str, bel.basis_inf)
+    if (not spec.linear_dims and bel.basis_str == ["1.0"]
+            and len(bel.beta) == d + 1):
+        # beliefs wrote only the default; fall back to the reference's
+        # default basis
+        spec = linear_basis(d)
+
+    splits = make_splits(x, y, cfg.tv_config, shuffle=datashuffle,
+                         scale_inputs=scaleinputs, minmax=bel.input_minmax,
+                         seed=seed)
+    mle = MLEConfig(
+        mode="mucm" if bel.mucm else "gp4ml",
+        family=bel.kernel_family(),
+        tries=cfg.tries,
+        nugget=max(bel.nugget, _MIN_NUGGET),
+        train_nugget=not bel.fix_nugget,
+        delta_bounds=_bounds_pair(cfg.delta_bounds, d),
+        sigma_bounds=_bounds_pair(cfg.sigma_bounds, 1),
+        nugget_bounds=_bounds_pair(cfg.nugget_bounds, 1),
+        constraints="none" if cfg.constraints == "none" else "bounds",
+    )
+    emul = Emulator(splits, spec, active, mle, beliefs=bel, config=cfg,
+                    dtype=dtype, seed=seed, device=device)
+    if bel.fix_mean:
+        emul.fixed_beta = np.asarray(bel.beta, dtype=np.float64)
+    return emul
+
+
+def train(emul: Emulator, auto: bool = True, message: bool = False) -> Emulator:
+    """Reference training workflow: optimize -> validate -> fold -> retrain.
+
+    Mirrors `g.train(emul, auto=True, message=False)`: with auto=False the
+    fold-in step asks interactively, as the reference does. Ends with
+    `final_build` on all data and the beliefs/inputs/outputs write-back.
+    """
+    n_v = emul.splits.n_v_sets
+    emul.optimize(message=message)
+    for k in range(n_v):
+        emul.validate_against(k, message=True)
+        if not auto:
+            ans = input(f"include validation set {k} into training and "
+                        "retrain? [y/n] ")
+            if not ans.strip().lower().startswith("y"):
+                break
+        emul.n_folded = k + 1
+        if emul.n_folded < n_v:   # the last fold is re-optimized by final_build
+            emul.optimize(message=message)
+    return final_build(emul, message=message)
+
+
+def final_build(emul: Emulator, message: bool = False) -> Emulator:
+    """Train on ALL data and write updated beliefs + reordered data files."""
+    emul.n_folded = emul.splits.n_v_sets
+    emul.optimize(message=message)
+    if emul.config is not None:
+        suffix = "-f"
+        bel_path = Path(emul.beliefs.path or emul.config.beliefs)
+        out_bel = bel_path.with_name(bel_path.name + suffix)
+        emul.updated_beliefs().to_file(out_bel)
+        x_raw = load_matrix(emul.config.inputs)[emul.splits.order]
+        y_raw = load_matrix(emul.config.outputs)[emul.splits.order]
+        ip = Path(emul.config.inputs)
+        op = Path(emul.config.outputs)
+        save_matrix(ip.with_name(ip.name + suffix), x_raw)
+        save_matrix(op.with_name(op.name + suffix), y_raw)
+        if message:
+            print(f"[final_build] wrote {out_bel}, {ip.name}{suffix}, "
+                  f"{op.name}{suffix}")
+    return emul

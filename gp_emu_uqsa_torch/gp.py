@@ -20,8 +20,14 @@ Everything goes through one Cholesky of A (and of the q x q G) and
 triangular solves. Failed factorizations give +inf likelihoods, never NaN.
 Every product runs in full fp32 or fp64 (`fp32_exact`: TF32 off).
 
-Not in this slice: the analytic adjoint `_nll_mucm_bwd`, `fit(refine>=1)`
-and `sample_posterior` come with the training slice.
+The likelihoods take hyperparameters with a leading batch axis (the
+restarts of a multi-restart fit: log_delta (B, d), log_sigma2 and
+log_nugget (B,)) and return one NLL per restart. They are differentiable:
+`nll_mucm` through `_NllMucm`, whose backward is the analytic,
+factor-reusing adjoint `_nll_mucm_bwd`; `nll_gp4ml` and `nll_mucm_ad`
+through autograd (the K1 adjoint and the ladder's `_chol_rev`).
+
+Not ported yet: `sample_posterior` (it comes with the samplers).
 """
 from __future__ import annotations
 
@@ -29,10 +35,12 @@ from typing import NamedTuple
 
 import torch
 
-from gp_emu_uqsa_torch.kernels import GPParams, corr, corr_self
+from gp_emu_uqsa_torch.kernels import (
+    GPParams, corr, corr_self, sq_diff_contraction,
+)
 from gp_emu_uqsa_torch.ops.cholesky import (
-    cholesky_or_nan, cholesky_with_jitter, tri_inverse, tri_solve,
-    tri_solve_auto,
+    cho_solve_refined, cholesky_or_nan, cholesky_with_jitter, tri_inverse,
+    tri_solve, tri_solve_auto,
 )
 from gp_emu_uqsa_torch.ops.precision import fp32_exact
 
@@ -60,6 +68,15 @@ def _sym(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + a.mT)
 
 
+def _mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Matrix-vector product over leading batch axes: a (..., m, k), v (..., k)."""
+    return (a @ v[..., None])[..., 0]
+
+
+def _logdet(l: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.sum(torch.log(torch.diagonal(l, dim1=-2, dim2=-1)), -1)
+
+
 @fp32_exact
 def _common(params: GPParams, x, y, h, noise_diag=None, ladder=True,
             family: str = "gaussian"):
@@ -68,6 +85,8 @@ def _common(params: GPParams, x, y, h, noise_diag=None, ladder=True,
     noise_diag: optional per-point noise variances added to the diagonal
     (heteroscedastic nugget, in correlation units). ladder=False uses a
     single plain Cholesky (NaN factor on failure) instead of the ladder.
+    One restart or a batch of them: every result gains the params' batch
+    axes.
     """
     a = corr_self(x, params, family)
     if noise_diag is not None:
@@ -77,22 +96,23 @@ def _common(params: GPParams, x, y, h, noise_diag=None, ladder=True,
         l, jitter = cholesky_with_jitter(a)
     else:
         l = cholesky_or_nan(a)
-        jitter = torch.zeros((), dtype=a.dtype, device=a.device)
+        jitter = torch.zeros(a.shape[:-2], dtype=a.dtype, device=a.device)
     linv_yh = tri_solve_auto(l, torch.cat([y[:, None], h], dim=1))
-    linv_y = linv_yh[:, 0]                           # L^-1 y
-    linv_h = linv_yh[:, 1:]                          # L^-1 H
-    g = linv_h.T @ linv_h                            # H^T A^-1 H
+    linv_y = linv_yh[..., 0]                         # L^-1 y
+    linv_h = linv_yh[..., 1:]                        # L^-1 H
+    g = linv_h.mT @ linv_h                           # H^T A^-1 H
     lg = cholesky_or_nan(_sym(g))
-    hty = linv_h.T @ linv_y                          # H^T A^-1 y
-    lg_inv_hty = tri_solve(lg, hty[:, None])[:, 0]   # Lg^-1 H^T A^-1 y
-    beta = tri_solve(lg, lg_inv_hty[:, None], trans=True)[:, 0]
-    # y^T A^-1 y - (H^T A^-1 y)^T G^-1 (H^T A^-1 y)  (>=0 up to rounding)
-    resid = torch.clamp(
-        torch.sum(linv_y * linv_y) - torch.sum(lg_inv_hty * lg_inv_hty),
-        min=0.0)
-    logdet_a = 2.0 * torch.sum(torch.log(torch.diagonal(l)))
-    logdet_g = 2.0 * torch.sum(torch.log(torch.diagonal(lg)))
-    return a, l, jitter, linv_y, linv_h, lg, beta, resid, logdet_a, logdet_g
+    hty = _mv(linv_h.mT, linv_y)                     # H^T A^-1 y
+    lg_inv_hty = tri_solve(lg, hty[..., None])[..., 0]   # Lg^-1 H^T A^-1 y
+    beta = tri_solve(lg, lg_inv_hty[..., None], trans=True)[..., 0]
+    # y^T A^-1 y - (H^T A^-1 y)^T G^-1 (H^T A^-1 y) = |L^-1 (y - H beta)|^2.
+    # The JAX package takes the difference of the first two terms, which
+    # cancel where the basis explains most of y; the sum of squares of the
+    # whitened residual does not.
+    white = linv_y - _mv(linv_h, beta)               # L^-1 (y - H beta)
+    resid = torch.sum(white * white, -1)
+    return (a, l, jitter, white, linv_h, lg, beta, resid, _logdet(l),
+            _logdet(lg))
 
 
 def _guard(nll: torch.Tensor) -> torch.Tensor:
@@ -100,19 +120,112 @@ def _guard(nll: torch.Tensor) -> torch.Tensor:
                        torch.full_like(nll, float("inf")))
 
 
+def _mucm_value(n, q, resid, logdet_a, logdet_g):
+    sigma2_hat = resid / (n - q - 2)
+    return (0.5 * (n - q) * torch.log(sigma2_hat) + 0.5 * logdet_a
+            + 0.5 * logdet_g)
+
+
+def nll_mucm_ad(params: GPParams, x, y, h, noise_diag=None,
+                ladder: bool = True, family: str = "gaussian") -> torch.Tensor:
+    """Concentrated NLL through plain autograd (the reference for the
+    analytic adjoint, and the path of noise_diag and other families)."""
+    n, q = h.shape[0], h.shape[1]
+    (_, _, _, _, _, _, _, resid, logdet_a, logdet_g) = _common(
+        params, x, y, h, noise_diag, ladder, family)
+    return _guard(_mucm_value(n, q, resid, logdet_a, logdet_g))
+
+
+@fp32_exact
+def _nll_mucm_fwd(params: GPParams, x, y, h, ladder: bool):
+    """The concentrated NLL and what its adjoint reuses: (nll, saved)."""
+    n, q = h.shape[0], h.shape[1]
+    (a, l, _, white, linv_h, lg, _, resid, logdet_a, logdet_g) = _common(
+        params, x, y, h, None, ladder)
+    nll = _guard(_mucm_value(n, q, resid, logdet_a, logdet_g))
+    e = tri_solve_auto(l, white[..., None], trans=True)[..., 0]
+    return nll, (a, l, linv_h, lg, e, resid)
+
+
+@fp32_exact
+def _nll_mucm_bwd(params: GPParams, x, saved, nll, ct):
+    """Analytic adjoint, reusing the forward's factor and A.
+
+    dNLL/dA = 1/2 A^-1 - 1/2 (A^-1 H) G^-1 (A^-1 H)^T
+              - (n-q)/(2 resid) e e^T
+    then chained through A(delta, nugget):
+      dA_ij/dlog delta_l = A_ij * 2 ((x_il-x_jl)/delta_l)^2
+      dA/dlog nugget     = nugget * I
+    so grad_log_delta_l = 2/delta_l^2 sum_ij M_ij (x_il-x_jl)^2 with
+    M = W (*) A, summed over exact differences
+    (`kernels.sq_diff_contraction`; the JAX package's rank-1 collapse of
+    this sum cancels in fp32): O(n^2 d).
+    A^-1 = L^-T L^-1 as in the JAX package: one triangular solve with n
+    right-hand sides and one product. Rows whose NLL is not finite get zero
+    gradients. Returns (grad_log_delta, grad_log_nugget, grad_y per row).
+    """
+    a, l, linv_h, lg, e, resid = saved
+    n = x.shape[0]
+    q = linv_h.shape[-1]
+    linv = tri_inverse(l)
+    ainv = linv.mT @ linv
+    del linv
+    ainv_h = tri_solve_auto(l, linv_h, trans=True)            # (..., n, q)
+    lg_inv_ah = tri_solve(lg, ainv_h.mT)                      # (..., q, n)
+    w = (0.5 * ainv - 0.5 * (lg_inv_ah.mT @ lg_inv_ah)
+         - ((n - q) / (2.0 * resid))[..., None, None]
+         * (e[..., :, None] * e[..., None, :]))
+    delta2 = torch.exp(2.0 * params.log_delta)
+    sq = sq_diff_contraction(w * a, x, x)                     # (..., d)
+    ok = torch.isfinite(nll)
+    zero = torch.zeros((), dtype=nll.dtype, device=nll.device)
+    ct = torch.where(ok, ct, zero)
+    grad_log_delta = torch.where(
+        ok[..., None], (2.0 / delta2) * sq * ct[..., None], zero)
+    grad_log_nugget = torch.where(
+        ok, params.nugget * torch.diagonal(w, dim1=-2, dim2=-1).sum(-1) * ct,
+        zero)
+    # dNLL/dy = (n-q)/resid * P y = (n-q)/resid * e
+    grad_y = torch.where(ok[..., None],
+                         ((n - q) / resid)[..., None] * e * ct[..., None], zero)
+    return grad_log_delta, grad_log_nugget, grad_y
+
+
+class _NllMucm(torch.autograd.Function):
+    """The concentrated NLL with the analytic adjoint (the JAX package's
+    `_nll_mucm_cvjp`). Gradients flow to log_delta, log_nugget and y;
+    log_sigma2 (profiled out) gets zero, x and h none."""
+
+    @staticmethod
+    def forward(ctx, log_delta, log_sigma2, log_nugget, x, y, h, ladder):
+        params = GPParams(log_delta, log_sigma2, log_nugget)
+        nll, saved = _nll_mucm_fwd(params, x, y, h, ladder)
+        ctx.save_for_backward(log_delta, log_sigma2, log_nugget, x, nll,
+                              *saved)
+        return nll
+
+    @staticmethod
+    def backward(ctx, ct):
+        log_delta, log_sigma2, log_nugget, x, nll, *saved = ctx.saved_tensors
+        params = GPParams(log_delta, log_sigma2, log_nugget)
+        g_delta, g_nugget, g_y = _nll_mucm_bwd(params, x, saved, nll, ct)
+        g_y = g_y.reshape((-1, g_y.shape[-1])).sum(0)
+        return (g_delta, torch.zeros_like(log_sigma2), g_nugget, None,
+                g_y if ctx.needs_input_grad[4] else None, None, None)
+
+
 def nll_mucm(params: GPParams, x, y, h, noise_diag=None,
              ladder: bool = True, family: str = "gaussian") -> torch.Tensor:
     """Concentrated (MUCM) negative log-likelihood; sigma^2 profiled out.
 
-    Reference: `Optimize.loglikelihood_mucm`. Forward value only in this
-    slice (the analytic adjoint comes with training).
+    Reference: `Optimize.loglikelihood_mucm`. The gaussian family without
+    noise_diag takes the analytic adjoint (`_NllMucm`); other cases take
+    autograd (`nll_mucm_ad`), as in the JAX package.
     """
-    n, q = h.shape[0], h.shape[1]
-    (_, _, _, _, _, _, _, resid, logdet_a, logdet_g) = _common(
-        params, x, y, h, noise_diag, ladder, family)
-    sigma2_hat = resid / (n - q - 2)
-    nll = 0.5 * (n - q) * torch.log(sigma2_hat) + 0.5 * logdet_a + 0.5 * logdet_g
-    return _guard(nll)
+    if noise_diag is None and family == "gaussian":
+        return _NllMucm.apply(params.log_delta, params.log_sigma2,
+                              params.log_nugget, x, y, h, ladder)
+    return nll_mucm_ad(params, x, y, h, noise_diag, ladder, family)
 
 
 def nll_gp4ml(params: GPParams, x, y, h, noise_diag=None,
@@ -146,16 +259,18 @@ def fit(params: GPParams, x, y, h, *, mode: str = "mucm",
     """Build the posterior sufficient statistics at fixed hyperparameters.
 
     `family` is not stored in the fit state: pass the same family to
-    predict()/validate() (the Emulator facade does this). `refine >= 1`
-    (iterative refinement with an fp64 residual) comes with the training
-    slice and raises NotImplementedError here.
+    predict()/validate() (the Emulator facade does this).
+
+    `refine`: iterative-refinement sweeps on the A-solves for e and
+    A^-1 H (`cho_solve_refined`). Each sweep forms the residual
+    [y - H beta | H] - (A + jitter I) [e | A^-1 H] as an fp64 product (the
+    card has fp64 units, so the JAX package's compensated-fp32 residual is
+    not needed) and corrects through the fp64 factor of A + jitter I, so
+    that for fp32 one sweep leaves the rounding of the fp32 result. beta,
+    the factor and the NLL are those of the unrefined fit.
     """
-    if refine:
-        raise NotImplementedError(
-            "fit(refine>=1) is not ported yet; it comes with the training "
-            "slice")
     n, q = h.shape[0], h.shape[1]
-    (a, l, jitter, linv_y, linv_h, lg, beta, resid, logdet_a, logdet_g) = _common(
+    (a, l, jitter, white, linv_h, lg, beta, resid, logdet_a, logdet_g) = _common(
         params, x, y, h, noise_diag, True, family)
     if mode == "mucm":
         sigma2 = resid / (n - q - 2)
@@ -166,9 +281,16 @@ def fit(params: GPParams, x, y, h, *, mode: str = "mucm",
                          + n * _LOG2PI)
     # e = A^-1 (y - H beta) = L^-T (L^-1 y - L^-1 H beta), fused with the
     # A^-1 H backward solve (one multi-RHS solve)
-    back = tri_solve_auto(
-        l, torch.cat([(linv_y - linv_h @ beta)[:, None], linv_h], dim=1),
-        trans=True)
+    back = tri_solve_auto(l, torch.cat([white[:, None], linv_h], dim=1),
+                          trans=True)
+    if refine:
+        # A_eff [e | A^-1 H] = [y - H beta | H], A_eff = a + jitter I (what
+        # the factor factorizes), the right-hand side formed in fp64
+        rt = torch.float64
+        h_r = h.to(rt)
+        rhs = torch.cat([(y.to(rt) - h_r @ beta.to(rt))[:, None], h_r], dim=1)
+        back = cho_solve_refined(l, a, rhs, iters=refine, jitter=jitter,
+                                 x=back)
     e = back[:, 0]
     ainv_h = back[:, 1:]
     return FitState(params, l, lg, beta, e, sigma2, ainv_h, jitter,

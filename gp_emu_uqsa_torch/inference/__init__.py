@@ -1,1 +1,1 @@
-from gp_emu_uqsa_torch.inference.lbfgs import MLEConfig
+from gp_emu_uqsa_torch.inference.lbfgs import MLEConfig, mle_fit

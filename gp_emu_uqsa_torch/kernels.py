@@ -13,8 +13,15 @@ expansion on delta-scaled inputs, as the JAX package does. On a CUDA
 device the gaussian family takes the hand-written kernels of
 `ops.kernel_matrix` inside the same gates as the JAX package's Pallas
 builds (`_fast_self_ok`, `_fast_cross_ok`), with "the tensor is on a CUDA
-device" in place of "the backend is a TPU". The analytic adjoints of the
-fast builds come with the training slice.
+device" in place of "the backend is a TPU". The kernels sit inside
+`torch.autograd.Function`s (`_GaussianSelfFast`, `_GaussianCrossFast`)
+whose backward is the analytic adjoint (`_gaussian_self_grads`,
+`_gaussian_cross_grads`) in full fp32 or fp64, so likelihoods built on
+them are differentiable on the card.
+
+Hyperparameters may carry a leading batch axis (the restarts of a
+multi-restart fit): `corr_self` with delta (B, d) and nugget (B,) against
+one x returns A of shape (B, n, n).
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import torch
 
 from gp_emu_uqsa_torch._device import resolve_device
 from gp_emu_uqsa_torch.ops.kernel_matrix import (
-    MAX_D, gaussian_corr_fused, gaussian_corr_self_fused,
+    MAX_D, gaussian_corr_fused, gaussian_corr_self_batched,
+    gaussian_corr_self_fused,
 )
 from gp_emu_uqsa_torch.ops.precision import fp32_exact
 
@@ -89,17 +97,19 @@ def params_from_numpy(log_delta, log_sigma2, log_nugget, *, device=None,
 @fp32_exact
 def scaled_sq_dists(x1: torch.Tensor, x2: torch.Tensor,
                     delta: torch.Tensor) -> torch.Tensor:
-    """sum_l ((x1_il - x2_jl)/delta_l)^2 for all pairs, shape (n1, n2).
+    """sum_l ((x1_il - x2_jl)/delta_l)^2 for all pairs, shape (..., n1, n2).
 
     The matmul expansion of the JAX package; `clamp(min=0)` removes the tiny
     negatives it can produce. The cross product runs in full fp32 (TF32
     off), as the JAX package pins it to HIGHEST: distances feed exp().
+    delta is (d,) or (..., d) (one set of length scales per batch entry).
     """
+    delta = delta[..., None, :]
     xs1 = x1 / delta
     xs2 = x2 / delta
-    n1 = torch.sum(xs1 * xs1, dim=-1)[:, None]
-    n2 = torch.sum(xs2 * xs2, dim=-1)[None, :]
-    cross = xs1 @ xs2.T
+    n1 = torch.sum(xs1 * xs1, dim=-1)[..., :, None]
+    n2 = torch.sum(xs2 * xs2, dim=-1)[..., None, :]
+    cross = xs1 @ xs2.mT
     return torch.clamp(n1 + n2 - 2.0 * cross, min=0.0)
 
 
@@ -141,6 +151,126 @@ _FAST_SELF_MIN_N = 512       # below this a launch costs about the build
 _FAST_CROSS_MIN_ROWS = 256   # both sides, as the JAX gate requires
 
 
+@fp32_exact
+def sq_diff_contraction(m: torch.Tensor, x1: torch.Tensor,
+                        x2: torch.Tensor) -> torch.Tensor:
+    """sum_ij M_ij (x1_il - x2_jl)^2 for every feature l: (..., d).
+
+    The delta-gradients of a Gaussian build. The JAX package collapses this
+    sum to (r + c)^T x_l^2 - 2 x_l^T M x_l, whose two terms cancel: in fp32
+    on an H100 at n = 4096 (chip_smoke.py phase 4) the collapse carried up
+    to 3e-2 relative error on the NLL gradient at starts where A is well
+    conditioned (kappa under 10), and noise larger than the gradient itself
+    at short length scales; this form 1.4e-6. The differences are exact, so
+    only the sum rounds. One (n1, n2) temporary a feature, shared by the
+    batch of M.
+    """
+    return torch.stack(
+        [torch.einsum("...ij,ij->...", m, (x1[:, k, None] - x2[None, :, k]) ** 2)
+         for k in range(x1.shape[1])], dim=-1)
+
+
+@fp32_exact
+def _gaussian_cross_grads(x1, x2, delta, c, ct):
+    """Analytic cotangents of sum(ct * c(x1, x2, delta)).
+
+    With M = ct * c (ct need not be symmetric):
+      d c_ij / d delta_l  = c_ij * 2 (x1_il - x2_jl)^2 / delta_l^3
+      d c_ij / d x1_il    = c_ij * (-2)(x1_il - x2_jl) / delta_l^2
+      d c_ij / d x2_jl    = c_ij * (+2)(x1_il - x2_jl) / delta_l^2
+    The x gradients collapse to row/column sums plus products; the delta
+    gradient is `sq_diff_contraction`. O(n^2 d). Every product runs in full
+    fp32 (TF32 off): autograd runs a backward after the forward's precision
+    context has closed.
+
+    c and ct may carry a leading batch axis, delta then (B, d); x1 and x2
+    are shared. Returns (grad_x1, grad_x2, grad_delta), the x gradients
+    per batch entry.
+    """
+    m = ct * c
+    r = torch.sum(m, dim=-1)                              # (..., n1)
+    col = torch.sum(m, dim=-2)                            # (..., n2)
+    mx2 = m @ x2                                          # (..., n1, d)
+    grad_delta = (2.0 / delta**3) * sq_diff_contraction(m, x1, x2)
+    inv_d2 = (1.0 / (delta * delta))[..., None, :]
+    grad_x1 = (-2.0 * inv_d2) * (x1 * r[..., None] - mx2)
+    grad_x2 = (-2.0 * inv_d2) * (x2 * col[..., None] - m.mT @ x1)
+    return grad_x1, grad_x2, grad_delta
+
+
+@fp32_exact
+def _gaussian_self_grads(x, delta, nugget, a, ct):
+    """Analytic (grad_x, grad_delta, grad_nugget) for the SELF build.
+
+    The cross formula applied at x1 = x2 = x with both input-slot
+    cotangents summed, plus the nugget diagonal: A = c(x, x) + nugget*I.
+    Batched as `_gaussian_cross_grads` (nugget then (B,)).
+    """
+    n = x.shape[0]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    a_corr = a - nugget[..., None, None] * eye
+    gx1, gx2, grad_delta = _gaussian_cross_grads(x, x, delta, a_corr, ct)
+    grad_nugget = torch.diagonal(ct, dim1=-2, dim2=-1).sum(-1)
+    return gx1 + gx2, grad_delta, grad_nugget
+
+
+def _sum_to(grad: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-batch-entry gradient summed over the batch axes `like` lacks."""
+    return grad.reshape((-1,) + like.shape).sum(0)
+
+
+class _GaussianSelfFast(torch.autograd.Function):
+    """K1 with its analytic adjoint (the JAX package's `_gaussian_self_fast`).
+
+    delta (d,) and nugget () give one (n, n) build; delta (B, d) and nugget
+    (B,) give (B, n, n), one K1 launch a restart.
+    """
+
+    @staticmethod
+    def forward(ctx, x, delta, nugget):
+        if delta.ndim == 1:
+            a = gaussian_corr_self_fused(x, delta, nugget)
+        else:
+            a = gaussian_corr_self_batched(x, delta, nugget)
+        ctx.save_for_backward(x, delta, nugget, a)
+        return a
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, delta, nugget, a = ctx.saved_tensors
+        grad_x, grad_delta, grad_nugget = _gaussian_self_grads(
+            x, delta, nugget, a, ct)
+        if ctx.needs_input_grad[0]:
+            grad_x = _sum_to(grad_x, x)
+        else:
+            grad_x = None
+        return grad_x, grad_delta, grad_nugget
+
+
+class _GaussianCrossFast(torch.autograd.Function):
+    """K2 with its analytic adjoint (the JAX package's `_gaussian_cross_fast`).
+
+    delta (B, d) stacks one K2 launch per batch entry.
+    """
+
+    @staticmethod
+    def forward(ctx, x1, x2, delta):
+        if delta.ndim == 1:
+            c = gaussian_corr_fused(x1, x2, delta)
+        else:
+            c = torch.stack([gaussian_corr_fused(x1, x2, dl) for dl in delta])
+        ctx.save_for_backward(x1, x2, delta, c)
+        return c
+
+    @staticmethod
+    def backward(ctx, ct):
+        x1, x2, delta, c = ctx.saved_tensors
+        gx1, gx2, grad_delta = _gaussian_cross_grads(x1, x2, delta, c, ct)
+        return (_sum_to(gx1, x1) if ctx.needs_input_grad[0] else None,
+                _sum_to(gx2, x2) if ctx.needs_input_grad[1] else None,
+                grad_delta)
+
+
 def _fast_self_ok(x: torch.Tensor) -> bool:
     return (x.is_cuda and x.ndim == 2 and x.dtype == torch.float32
             and x.shape[0] >= _FAST_SELF_MIN_N
@@ -165,7 +295,7 @@ def corr(x1: torch.Tensor, x2: torch.Tensor, params: GPParams,
     256 rows, in fp32, with d <= 20.
     """
     if family == "gaussian" and _fast_cross_ok(x1, x2):
-        return gaussian_corr_fused(x1, x2, params.delta)
+        return _GaussianCrossFast.apply(x1, x2, params.delta)
     try:
         fn = CORR_FAMILIES[family]
     except KeyError:
@@ -183,14 +313,17 @@ def corr_self(x: torch.Tensor, params: GPParams,
     symmetric operand. On a CUDA device the gaussian family in fp32 with
     n >= 512 and d <= 20 takes kernel K1
     (`ops.kernel_matrix.gaussian_corr_self_fused`), whose difference-form
-    distance is exactly symmetric already.
+    distance is exactly symmetric already. params with delta (B, d) and
+    nugget (B,) give A of shape (B, n, n). Differentiable in the
+    hyperparameters on both paths.
     """
     if family == "gaussian" and _fast_self_ok(x):
-        return gaussian_corr_self_fused(x, params.delta, params.nugget)
+        return _GaussianSelfFast.apply(x, params.delta, params.nugget)
     a = corr(x, x, params, family)
-    a = 0.5 * (a + a.T)
+    a = 0.5 * (a + a.mT)
     n = x.shape[0]
-    return a + params.nugget * torch.eye(n, dtype=a.dtype, device=a.device)
+    return a + params.nugget[..., None, None] * torch.eye(
+        n, dtype=a.dtype, device=a.device)
 
 
 def gaussian_corr(x1: torch.Tensor, x2: torch.Tensor,

@@ -8,6 +8,10 @@ Port of `gp_emu_uqsa_tpu.ops.kernel_matrix`:
 * K2 `gaussian_corr_fused` replaces `gaussian_corr_pallas` (`:122`): the
   cross block c(X1, X2) = exp(-D2) of validation and exact prediction.
 
+The restarts of a multi-restart fit take `gaussian_corr_self_batched`: one
+K1 launch a restart into a slice of one (B, n, n) output (a batch axis
+inside the kernel is later work).
+
 Both launch `csrc/corr_build.cu`, which scales the inputs by delta and adds
 the nugget itself: a wrapper call allocates the output and makes one launch,
 and never waits for the card (a nugget that is a tensor on the card goes to
@@ -170,22 +174,38 @@ def gaussian_corr_self_mirrored_plain(x, delta, nugget,
     return a
 
 
-def gaussian_corr_self_fused(x, delta, nugget) -> torch.Tensor:
+def _out_arg(out, n: int, x: torch.Tensor) -> torch.Tensor:
+    """K1's output: a new (n, n) fp32 tensor, or `out` checked to be one
+    contiguous (n, n) fp32 block on x's device (a slice out[b] of a batch)."""
+    if out is None:
+        return torch.empty((n, n), dtype=torch.float32, device=x.device)
+    if (out.shape != (n, n) or out.dtype != torch.float32
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({n}, {n}) fp32 tensor on "
+                         f"{x.device}, got {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}")
+    return out
+
+
+def gaussian_corr_self_fused(x, delta, nugget, *, out=None) -> torch.Tensor:
     """K1: A = exp(-sum_l ((x_i - x_j)/delta_l)^2) + nugget I, (n, n) fp32.
 
     Counterpart of `gaussian_corr_self_pallas`. x: (n, d) with d <= 20;
-    delta: (d,); nugget: a number or a one-value tensor. CPU tensors take
-    the plain version. On the card: one launch, no wait for the card.
+    delta: (d,); nugget: a number or a one-value tensor. `out`, when given,
+    is the contiguous (n, n) fp32 block written and returned. CPU tensors
+    take the plain version. On the card: one launch, no wait for the card.
     """
     x = _fp32(x)
+    n = x.shape[0]
     if x.device.type == "cpu":
-        return gaussian_corr_self_plain(x, delta, nugget)
+        a = gaussian_corr_self_plain(x, delta, nugget)
+        return a if out is None else _out_arg(out, n, x).copy_(a)
     x = x.contiguous()
     dl = _delta_arg(delta, x)
     _check_cuda("gaussian_corr_self_fused", x, dl)
     nu, nu_value = _nugget_arg(nugget, x)
-    n, d = x.shape
-    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    d = x.shape[1]
+    out = _out_arg(out, n, x)
     if n:
         _launch("gp_corr_self", _SELF_ARGTYPES, x, x.data_ptr(), dl.data_ptr(),
                 None if nu is None else nu.data_ptr(), nu_value,
@@ -195,6 +215,38 @@ def gaussian_corr_self_fused(x, delta, nugget) -> torch.Tensor:
 
 
 gaussian_corr_self_fused.launches = 0
+
+
+def gaussian_corr_self_batched_plain(x, deltas, nuggets) -> torch.Tensor:
+    """Plain version of the batched K1: one `gaussian_corr_self_plain` per
+    row of deltas (B, d) and nuggets (B,), stacked to (B, n, n)."""
+    return torch.stack([gaussian_corr_self_plain(x, dl, nu)
+                        for dl, nu in zip(deltas, nuggets)])
+
+
+def gaussian_corr_self_batched(x, deltas, nuggets) -> torch.Tensor:
+    """K1 for B hyperparameter sets against one x: (B, n, n) fp32.
+
+    deltas: (B, d); nuggets: (B,). The restarts of a multi-restart fit
+    share x. On the card each restart is one K1 launch into the contiguous
+    slice out[b] (delta and nugget by pointer: no wait for the card); CPU
+    tensors take the plain version.
+    """
+    x = _fp32(x)
+    if x.device.type == "cpu":
+        return gaussian_corr_self_batched_plain(x, deltas, nuggets)
+    deltas = torch.as_tensor(deltas, dtype=torch.float32, device=x.device)
+    nuggets = torch.as_tensor(nuggets, dtype=torch.float32, device=x.device)
+    if deltas.ndim != 2 or nuggets.shape != deltas.shape[:1]:
+        raise ValueError(f"deltas (B, d) and nuggets (B,) expected, got "
+                         f"{tuple(deltas.shape)} and {tuple(nuggets.shape)}")
+    deltas = deltas.contiguous()
+    n = x.shape[0]
+    out = torch.empty((deltas.shape[0], n, n), dtype=torch.float32,
+                      device=x.device)
+    for b in range(deltas.shape[0]):
+        gaussian_corr_self_fused(x, deltas[b], nuggets[b], out=out[b])
+    return out
 
 
 def _check_dims(x1, x2):

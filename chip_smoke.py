@@ -65,8 +65,25 @@ each of which fails the run with a non-zero exit:
    n=16384 against fp64, with the breakdown; (f) the jitter ladder per
    restart, card against CPU, no NaN; (g) setup -> train -> final_build
    on a copy of examples/toy-sim in a temporary directory.
-5. Print the kernels JSON line (each entry with its serving and training
-   launches), the card line, and as the last line
+5. The UQSA path, every check collected and failing the phase at its end:
+   (a) sensitivity.setup and the indices (uncertainty, sensitivity,
+   totaleffectvariance, main and interaction effects) of phase 3's
+   emulator in fp32 and fp64, each step timed with its peak memory; fp32
+   held against fp64 per quantity under budgets set by kappa(A), at the
+   serving nugget and at larger ones, beside two controls (the JAX
+   package's Gram-product log rho; every UQSA product in TF32, which must
+   break a held budget) and fp32 with A^-1 formed in fp64; a miss where a
+   budget reaches its cap is printed as a finding; (b) BASELINE config 3
+   (examples/synthetic-10d/run_10d.py: optLatinHyperCube -> fp64
+   train_full -> setup) against tests/oracle.py at rtol 1e-8, the oracle
+   run in worker processes while (a) and (c) use the card; (c) a
+   3-output MultiEmulator fit at n=4096 (K1), its NLL at the starts and
+   at the fitted parameters against the single-output objective, the fit
+   and a single-output fit again in fp64 (the batched rows must end where
+   output 0's restarts end alone), sense_matrix and a prediction (K2),
+   every launch of the phase counted.
+6. Print the kernels JSON line (each entry with its serving, training and
+   UQSA launches), the card line, and as the last line
    {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -74,9 +91,14 @@ and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import json
+import multiprocessing
+import os
 import shutil
 import subprocess
 import sys
@@ -94,14 +116,19 @@ from gp_emu_uqsa_torch import (
 )
 from gp_emu_uqsa_torch.basis import basis_matrix, linear_basis
 from gp_emu_uqsa_torch.configs import Beliefs
+from gp_emu_uqsa_torch.design_inputs import optLatinHyperCube
 from gp_emu_uqsa_torch.inference import lbfgs
+from gp_emu_uqsa_torch.multi import MultiEmulator
 from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import cholesky as chol
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
+from gp_emu_uqsa_torch.ops import precision
 from gp_emu_uqsa_torch.ops.precision import fp32_exact_matmul
 from gp_emu_uqsa_torch.tools import train_linalg
 from gp_emu_uqsa_torch.tools.k4_high_variants import launches_ms, ptxas_report
+from gp_emu_uqsa_torch.tools.uqsa_forms import gram_log_rho_sum
+import gp_emu_uqsa_torch.sensitivity as sensitivity
 
 N_TRAIN = 16384          # training rows (BASELINE config 5)
 N_VALID = 256            # one V-set: tv_config (65, 64, 1) over 16640 rows
@@ -163,6 +190,43 @@ BUDGETS = {
     "refine_solve": 1e-5,
     "unrefined_solve": 3e-2,
 }
+
+
+# phase 5, the UQSA path. (a) at phase 3's emulator (n = 16384): fp32 on the
+# card against fp64 on the card at the same hyperparameters, each quantity
+# within c kappa(A) eps32, at least the floor and at most the cap: E_EY,
+# V_EY, V_i and V_Ti relative to the largest fp64 value, the indices S_i and
+# S_Ti absolute, capped at the JAX package's fp32 budget for them (0.02,
+# docs/numerics.md). The fp32 A^-1 carries about kappa eps32 of error, and
+# so do the indices: each c is 2.6x the largest reading / (kappa eps32) of
+# the sound run (PERF.md §6). Held, with every miss a failure, at the
+# nuggets where no budget reaches its cap; at the others (the serving
+# nugget among them) a miss is printed as a finding. A control, every
+# product of the UQSA in TF32, must break a held budget.
+UQSA_M, UQSA_V = 0.5, 0.02
+# nuggets beside the serving 1e-4: kappa(A) from about 3e3 up
+UQSA_SWEEP_NUGGETS = (1.0, 1e-1, 1e-2, 1e-3)
+UQSA_BUDGETS = {            # quantity: (c, floor, cap)
+    "E_EY": (5e-4, 1e-6, 1e-4),
+    "V_EY": (2.5, 1e-5, 0.5),
+    "V_i": (1.25, 1e-5, 0.05),
+    "V_Ti": (1.25, 1e-5, 0.05),
+    "S_i": (1.5, 1e-5, 0.02),
+    "S_Ti": (1.5, 1e-5, 0.02),
+}
+# (b) BASELINE config 3 (examples/synthetic-10d/run_10d.py): 500 points of
+# a 10-D smooth g-function from an optimized LHC, fp64, held against
+# tests/oracle.py at the trained hyperparameters
+G10_N, G10_DIM, G10_CANDIDATES, G10_TRIES = 500, 10, 50, 8
+G10_MAX_ITERS = 40        # L-BFGS iterations of the optimize (default 200)
+G10_A_COEF = np.array([0.0, 0.5, 1.5, 3.0, 6.0, 9.0, 12.0, 15.0, 20.0, 30.0])
+ORACLE_RTOL = 1e-8
+# (c) MultiEmulator at the fit size: k outputs x tries restarts in one batch
+MULTI_K, MULTI_TRIES, MULTI_MAX_ITERS = 3, 4, 8
+# fp64 batched rows against the single-output run: the rtol at which
+# tests/test_torch_multi.py holds two fp64 L-BFGS implementations together;
+# the fp32 runs' ends differ by about 0.16 relative
+MULTI_ROWS_RTOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -1049,25 +1113,37 @@ def k1_at_fit_size(x, card):
     return alone, host_us
 
 
-class _OptimizeLog:
-    """Wraps the emulator's mle_fit: time, iterations and objective
-    evaluations of every optimize (the objective is gp.nll)."""
-
-    def __init__(self):
-        self.runs = []
-        self.evals = 0      # objective calls (each on the running restarts)
-        self.rows = 0       # restart evaluations in them
+class _NllCalls:
+    """Counts objective calls (gp.nll, each on the running restarts) and
+    the restart evaluations in them."""
 
     def __enter__(self):
-        self._fit, self._nll = emulator_module.mle_fit, gp.nll
+        self.calls = self.rows = 0
+        self._nll = gp.nll
 
         def nll(params, *args, **kwargs):
-            self.evals += 1
+            self.calls += 1
             self.rows += params.log_nugget.numel()
             return self._nll(params, *args, **kwargs)
 
+        gp.nll = nll
+        return self
+
+    def __exit__(self, *exc):
+        gp.nll = self._nll
+
+
+class _OptimizeLog(_NllCalls):
+    """Wraps the emulator's mle_fit: time, iterations and objective
+    evaluations of every optimize (the objective is gp.nll)."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.runs = []
+        self._fit = emulator_module.mle_fit
+
         def fit(*args, **kwargs):
-            evals0, rows0 = self.evals, self.rows
+            calls0, rows0 = self.calls, self.rows
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, info = self._fit(*args, **kwargs)
@@ -1075,18 +1151,19 @@ class _OptimizeLog:
             self.runs.append({"s": time.perf_counter() - t0,
                               "n": args[1].shape[0],
                               "iters": int(info["iters"].max()),
-                              "evals": self.evals - evals0,
+                              "evals": self.calls - calls0,
                               "rows": self.rows - rows0,
                               "nlls": info["nlls"].tolist(),
                               "best": float(info["best_nll"]),
                               "params": params})
             return params, info
 
-        emulator_module.mle_fit, gp.nll = fit, nll
+        emulator_module.mle_fit = fit
         return self
 
     def __exit__(self, *exc):
-        emulator_module.mle_fit, gp.nll = self._fit, self._nll
+        emulator_module.mle_fit = self._fit
+        super().__exit__(*exc)
 
 
 def phase_train_path(dev, card, failures):
@@ -1329,6 +1406,439 @@ def phase_train(dev, card):
     return launches
 
 
+def timed(label, fn, card):
+    """fn() on the host clock, ending in a synchronize, and the peak of
+    torch.cuda.max_memory_allocated over it: (result, s, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    {label}: {t * 1e3:.1f} ms, peak allocated {peak:.3f} GiB "
+          f"({card})")
+    return out, t, peak
+
+
+def uqsa_results(sens) -> dict:
+    """uncertainty(), sensitivity() and totaleffectvariance() as fp64 on the
+    host."""
+    out = {**sens.uncertainty(), **sens.sensitivity(),
+           **sens.totaleffectvariance()}
+    return {k: v.detach().double().cpu() for k, v in out.items()}
+
+
+def uqsa_errors(r32, r64) -> dict:
+    """fp32 against fp64 per quantity: relative to the largest fp64 value for
+    E_EY, V_EY, V_i, V_Ti; absolute for the indices."""
+    out = {}
+    for q in UQSA_BUDGETS:
+        err = float((r32[q] - r64[q]).abs().max())
+        out[q] = err if q.startswith("S_") else err / float(r64[q].abs().max())
+    return out
+
+
+def index_checks(name, r, tol, failures):
+    """S_i >= -tol, sum S_i <= 1 + tol, S_Ti >= S_i - tol."""
+    si, sti = r["S_i"], r["S_Ti"]
+    ok = (bool((si >= -tol).all()) and float(si.sum()) <= 1.0 + tol
+          and bool((sti >= si - tol).all()))
+    print(f"    {name}: min S_i {float(si.min()):.4g}, sum S_i "
+          f"{float(si.sum()):.6f}, min(S_Ti - S_i) {float((sti - si).min()):.3e}"
+          f" (tolerance {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name}: index inequalities")
+
+
+def uqsa_emulator(dev, dtype, nugget):
+    """Phase 3's emulator (n = 16384 training rows, delta 0.8, data of
+    `problem`), fit at those hyperparameters and `nugget` in `dtype`."""
+    x_np, y_np = problem(N_TRAIN + N_VALID)
+    emul = Emulator.from_arrays(x_np, y_np, tv_config=(65, 64, 1), dtype=dtype,
+                                device=dev, seed=0)
+    emul.params = params_from_numpy(np.log(np.full(DIM, DELTA)), 0.0,
+                                    np.log(nugget), device=dev, dtype=dtype)
+    emul.state = gp.fit(emul.params, *emul.train_view())
+    return emul
+
+
+@contextlib.contextmanager
+def _tf32_matmul():
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_tf32
+    flags.allow_tf32 = True
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = saved
+
+
+def tf32_products(fn):
+    """fn() with every `fp32_exact` region of the port (the decorator reads
+    `precision.fp32_exact_matmul` at each call) running TF32 products: the
+    error that `fp32_exact` exists to prevent."""
+    saved = precision.fp32_exact_matmul
+    precision.fp32_exact_matmul = _tf32_matmul
+    try:
+        return fn()
+    finally:
+        precision.fp32_exact_matmul = saved
+
+
+def uqsa_run(dev, card, dtype, nugget, timed_steps=False, ainv=None):
+    """sensitivity.setup and the indices of `uqsa_emulator` in `dtype`.
+    fp64: (results, {"kappa": kappa(A) of the factored matrix, "ainv": A^-1
+    rounded to fp32, on the host}). fp32: (results, {control: results}) for the controls
+    (the Gram-product log rho; every product in TF32) and, given `ainv`, the
+    same workflow with that A^-1 in place of the fp32 one. With
+    `timed_steps`, every step of the workflow is timed and printed with its
+    peak memory."""
+    emul = uqsa_emulator(dev, dtype, nugget)
+    m, v = np.full(DIM, UQSA_M), np.full(DIM, UQSA_V)
+
+    def run(label, fn):
+        return timed(label, fn, card)[0] if timed_steps else fn()
+
+    sens = run("setup (A^-1)", lambda: sensitivity.setup(emul, m, v))
+    if timed_steps:
+        for label, fn in (
+                ("uncertainty() (the total: 1 subset of 8 dims)",
+                 sens.uncertainty),
+                ("sensitivity() (8 subsets of 1 dim)", sens.sensitivity),
+                ("totaleffectvariance() (8 complements of 7 dims)",
+                 sens.totaleffectvariance),
+                ("main_effect(0, 100)", lambda: sens.main_effect(0, 100)),
+                ("interaction_effect(0, 1, 25)",
+                 lambda: sens.interaction_effect(0, 1, 25))):
+            out = run(label, fn)
+            vals = out.values() if isinstance(out, dict) else out
+            if not all(bool(torch.isfinite(a).all()) for a in vals):
+                raise SmokeFailure(f"(a) {dtype} {label}: non-finite values")
+    res = uqsa_results(sens)
+    if dtype == torch.float64:
+        a64 = kernels.corr_self(emul.train_view()[0], emul.params)
+        a64.diagonal().add_(emul.state.jitter)
+        # held on the host, out of the fp32 run's peak memory
+        other = {"kappa": float(kappa_fp64(a64)),
+                 "ainv": sens.ainv.float().cpu()}
+        del a64
+    else:
+        sens._log_rho_sum = gram_log_rho_sum.__get__(sens)
+        sens._total = None
+        other = {"Gram log rho": uqsa_results(sens)}
+        del sens
+        other["TF32 products"] = tf32_products(
+            lambda: uqsa_results(sensitivity.setup(emul, m, v)))
+        if ainv is not None:
+            sens = sensitivity.setup(emul, m, v)
+            sens.ainv = ainv.to(dev)
+            other["A^-1 from fp64"] = uqsa_results(sens)
+    del sens, emul
+    torch.cuda.empty_cache()
+    return res, other
+
+
+def phase_uqsa_serving_width(dev, card, failures):
+    """(a) UQSA of phase 3's emulator in fp32 and fp64 on the card, each step
+    timed with its peak memory; fp32 held against fp64 at the serving nugget
+    and at larger ones (smaller kappa(A)), beside two controls."""
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        print(f"  (a) UQSA at n={N_TRAIN}, d={DIM}, {str(dtype)[6:]}, nugget "
+              f"{NUGGET:g}, m={UQSA_M}, v={UQSA_V}:")
+        ainv = runs[torch.float64][1].pop("ainv") if runs else None
+        runs[dtype] = uqsa_run(dev, card, dtype, NUGGET, True, ainv)
+    print("    fp32 vs fp64 per quantity (E_EY, V_EY, V_i, V_Ti relative; "
+          "S_i, S_Ti absolute): error | budget | controls: Gram log rho, "
+          "TF32 products | fp32 with A^-1 from fp64")
+    caught_any, findings = False, []
+    for nugget in UQSA_SWEEP_NUGGETS + (NUGGET,):
+        if nugget == NUGGET:
+            (r64, o64), (r32, o32) = runs[torch.float64], runs[torch.float32]
+        else:
+            r64, o64 = uqsa_run(dev, card, torch.float64, nugget)
+            r32, o32 = uqsa_run(dev, card, torch.float32, nugget,
+                                ainv=o64.pop("ainv"))
+        kappa = o64["kappa"]
+        k = kappa * EPS32
+        budgets = {q: min(max(c * k, floor), cap)
+                   for q, (c, floor, cap) in UQSA_BUDGETS.items()}
+        held = all(c * k <= cap for c, _, cap in UQSA_BUDGETS.values())
+        errs = uqsa_errors(r32, r64)
+        other = {name: uqsa_errors(r, r64) for name, r in o32.items()}
+        over = [q for q in UQSA_BUDGETS if errs[q] > budgets[q]]
+        caught = [q for q in UQSA_BUDGETS
+                  if other["TF32 products"][q] > budgets[q]]
+        print(f"    nugget {nugget:g}: kappa(A) {kappa:.4g}, kappa eps32 "
+              f"{k:.4g}, {'held' if held else 'reported'}; fp64 E_VarY "
+              f"{float(r64['E_VarY']):.8g}, V_EY {float(r64['V_EY']):.6g}")
+        for q in UQSA_BUDGETS:
+            print(f"      {q}: {errs[q]:.3e} | {budgets[q]:.3e} | "
+                  f"{other['Gram log rho'][q]:.3e}, "
+                  f"{other['TF32 products'][q]:.3e} | "
+                  f"{other['A^-1 from fp64'][q]:.3e}"
+                  f"{'  over' if q in over else ''}")
+        index_checks(f"nugget {nugget:g} fp64", r64, budgets["S_i"], failures)
+        if held:
+            print(f"      TF32 control over budget in {caught}")
+            caught_any |= bool(caught)
+            if over:
+                failures.append(f"(a) nugget {nugget:g}: fp32 vs fp64 over "
+                                f"budget in {over}")
+            index_checks(f"nugget {nugget:g} fp32", r32, budgets["S_i"],
+                         failures)
+        elif over:
+            findings.append(f"nugget {nugget:g} (kappa {kappa:.3g}): {over}")
+    if not caught_any:
+        failures.append("(a) no budget caught the TF32 control")
+    for name, r in (("fp32", r32), ("fp64", r64),
+                    ("fp32, A^-1 from fp64", o32["A^-1 from fp64"])):
+        print(f"    nugget {NUGGET:g} {name} S_i  "
+              f"{np.round(r['S_i'].numpy(), 5).tolist()}")
+        print(f"    nugget {NUGGET:g} {name} S_Ti "
+              f"{np.round(r['S_Ti'].numpy(), 5).tolist()}")
+    for f in findings:
+        print(f"    FINDING: fp32 UQSA misses its budgets where they exceed "
+              f"the caps, at {f} ({card})")
+
+
+def smooth_g(x):
+    """examples/synthetic-10d/run_10d.py's simulator."""
+    b = 0.8 / (1.0 + G10_A_COEF)
+    return np.prod(1.0 + b * np.cos(2 * np.pi * x), axis=1)
+
+
+_ORACLE = None
+
+
+def oracle_call(name, args):
+    """tests/oracle.py's `name`(*args), the module loaded by its path (it is
+    plain NumPy); run in worker processes."""
+    global _ORACLE
+    if _ORACLE is None:
+        path = Path(__file__).resolve().parent / "tests" / "oracle.py"
+        spec = importlib.util.spec_from_file_location("oracle", path)
+        _ORACLE = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_ORACLE)
+    return getattr(_ORACLE, name)(*args)
+
+
+def phase_uqsa_config3(dev, card, pool):
+    """(b) BASELINE config 3 as run_10d.py runs it, fp64 on the card:
+    optLatinHyperCube -> Emulator.from_arrays -> train_full -> setup. The
+    oracle's evaluations at the trained hyperparameters go to `pool`;
+    returns what `hold_config3` needs."""
+    print(f"  (b) BASELINE config 3: n={G10_N}, d={G10_DIM}, fp64, "
+          f"tries={G10_TRIES}, {G10_MAX_ITERS} L-BFGS iterations ({card})")
+    x, _, _ = timed(
+        f"optLatinHyperCube({G10_DIM}, {G10_N}, {G10_CANDIDATES})",
+        lambda: optLatinHyperCube(G10_DIM, G10_N, G10_CANDIDATES,
+                                  [[0.0, 1.0]] * G10_DIM, seed=0, device=dev),
+        card)
+    y = smooth_g(x)
+    emul = Emulator.from_arrays(x, y, tries=G10_TRIES, nugget=1e-8,
+                                scale_inputs=False, seed=0,
+                                tv_config=(10, 0, 1), dtype=torch.float64,
+                                device=dev)
+    emul.mle_config = dataclasses.replace(emul.mle_config,
+                                          max_iters=G10_MAX_ITERS)
+    timed("train_full()", emul.train_full, card)
+    m, v = np.full(G10_DIM, UQSA_M), np.full(G10_DIM, UQSA_V)
+    sens, _, _ = timed("setup", lambda: sensitivity.setup(emul, m, v), card)
+    r, _, _ = timed("uncertainty + sensitivity + totaleffectvariance",
+                    lambda: uqsa_results(sens), card)
+    xt, yt, _ = emul.train_view()
+    xt, yt = xt.cpu().numpy(), yt.cpu().numpy()
+    delta = torch.exp(emul.params.log_delta).cpu().numpy()
+    nugget = float(emul.params.nugget) + float(emul.state.jitter)
+    h_cols = [None] + list(emul.spec.linear_dims)
+    base = (xt, yt, h_cols, delta, nugget, m, v)
+    print(f"    trained delta {np.round(delta, 4).tolist()}, nugget + jitter "
+          f"{nugget:.3g}, NLL {float(emul.state.nll):.8g}")
+    everything = tuple(range(G10_DIM))
+    subsets = ([(i,) for i in range(G10_DIM)] + [everything]
+               + [tuple(j for j in everything if j != i)
+                  for i in range(G10_DIM)])
+    jobs = {"uncertainty": pool.submit(oracle_call, "uqsa_uncertainty", base)}
+    for w in subsets:
+        jobs[w] = pool.submit(oracle_call, "uqsa_sensitivity_variance",
+                              base + (w,))
+    del sens, emul
+    torch.cuda.empty_cache()
+    return r, jobs, subsets
+
+
+def hold_config3(r, jobs, subsets, failures):
+    """(b)'s results against tests/oracle.py at rtol ORACLE_RTOL; S_i and
+    S_Ti beside the g-function's order of importance."""
+    t0 = time.perf_counter()
+    m0, v0 = jobs["uncertainty"].result()
+    sv_ = {w: jobs[w].result() for w in subsets}
+    d = G10_DIM
+    total = sv_[tuple(range(d))]
+    want = {"E_EY": [m0], "V_EY": [v0], "E_VarY": [total],
+            "V_i": [sv_[(i,)] for i in range(d)],
+            "V_Ti": [total - sv_[tuple(j for j in range(d) if j != i)]
+                     for i in range(d)]}
+    print(f"  (b) against tests/oracle.py (waited {time.perf_counter() - t0:.1f}"
+          f" s for the worker processes):")
+    for q, w in want.items():
+        got = np.atleast_1d(r[q].numpy())
+        w = np.asarray(w)
+        rel = float(np.max(np.abs(got - w) / np.abs(w)))
+        ok = rel <= ORACLE_RTOL
+        print(f"    {q}: max rel err {rel:.3e} (rtol {ORACLE_RTOL:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"(b) {q} vs oracle: {rel:.3e}")
+    order = np.argsort(G10_A_COEF)
+    print(f"    S_i  {np.round(r['S_i'].numpy(), 4).tolist()}")
+    print(f"    S_Ti {np.round(r['S_Ti'].numpy(), 4).tolist()}")
+    print(f"    inputs by S_Ti {np.argsort(-r['S_Ti'].numpy()).tolist()}; the "
+          f"g-function's order (a = {G10_A_COEF.tolist()}): {order.tolist()}")
+
+
+def phase_uqsa_multi(dev, card, failures):
+    """(c) MultiEmulator at the fit size, fp32 (K1): k outputs x tries
+    restarts in one batch, against a single-output mle_fit from the same
+    starts, then sense_matrix and a prediction (K2)."""
+    x_np, y0 = problem(N_FIT)
+    y = np.stack([y0, np.cos(2 * x_np[:, 3]) + x_np[:, 4] * x_np[:, 5],
+                  x_np[:, 0] + x_np[:, 6] ** 2], axis=1).astype(np.float32)
+    cfg = lbfgs.MLEConfig(tries=MULTI_TRIES, nugget=NUGGET,
+                          max_iters=MULTI_MAX_ITERS)
+    print(f"  (c) MultiEmulator: n={N_FIT}, d={DIM}, k={MULTI_K} outputs x "
+          f"{MULTI_TRIES} restarts, {MULTI_MAX_ITERS} L-BFGS iterations, fp32")
+    k1_0 = counters()["K1"]
+    with _NllCalls() as calls:
+        me, _, _ = timed("MultiEmulator.fit", lambda: MultiEmulator.fit(
+            torch.Generator().manual_seed(0), x_np, y, cfg=cfg,
+            dtype=torch.float32, device=dev), card)
+    k1 = counters()["K1"] - k1_0
+    print(f"    {calls.calls} objective calls holding {calls.rows} restart "
+          f"evaluations; K1 launches {k1}; iterations "
+          f"{me.info['iters'].tolist()}")
+    if k1 <= 0:
+        failures.append("(c) MultiEmulator.fit did not launch K1")
+    with _NllCalls() as calls1:
+        (_, info), _, _ = timed("mle_fit, output 0 alone", lambda: lbfgs.mle_fit(
+            torch.Generator().manual_seed(0), me.x, me.y[:, 0], me.h, cfg),
+            card)
+    # the first evaluation, at the starts: output 0's rows of the batched
+    # objective (y one row a restart) against the single-output objective
+    lo, hi = lbfgs._default_bounds(cfg, DIM)
+    u0 = lbfgs._make_objective(me.x, me.y[:, 0], me.h, cfg, lo, hi)[2](
+        me.info["starts_logspace"])
+    with torch.no_grad():
+        v_k = lbfgs._make_objective(
+            me.x, me.y.T.repeat_interleave(MULTI_TRIES, 0), me.h, cfg, lo,
+            hi)[0](u0.repeat(MULTI_K, 1))[:MULTI_TRIES]
+        v_1 = lbfgs._make_objective(me.x, me.y[:, 0], me.h, cfg, lo, hi)[0](u0)
+    print(f"    NLL at the starts, output 0: batched {v_k.tolist()}, alone "
+          f"{v_1.tolist()}; bitwise equal: {torch.equal(v_k, v_1)}")
+    if not torch.allclose(v_k, v_1, rtol=NLL_FLOOR, atol=0.0):
+        failures.append("(c) the batched objective's rows differ from the "
+                        "single-output objective at the starts")
+    # and at the fitted parameters (batched K1 at 3 restarts against one)
+    with torch.no_grad():
+        v_k = gp.nll(me.params, me.x, me.y.T, me.h, mode=cfg.mode)[0]
+        v_1 = gp.nll(kernels.GPParams(*(t[0] for t in me.params)), me.x,
+                     me.y[:, 0], me.h, mode=cfg.mode)
+    print(f"    NLL at output 0's fitted parameters: batched {float(v_k)!r}, "
+          f"alone {float(v_1)!r}")
+    if not torch.allclose(v_k, v_1, rtol=NLL_FLOOR, atol=0.0):
+        failures.append("(c) the batched NLL differs from the single-output "
+                        "NLL at the fitted parameters")
+    # fp32: the runs' ends are printed, not held; fp64 below holds them
+    best = [float(me.info["nlls"][i].min()) for i in range(MULTI_K)]
+    single = float(info["best_nll"])
+    print(f"    best NLL per output {best}; output 0 alone {single:.8g} "
+          f"({calls1.calls} calls, iterations {info['iters'].tolist()}): "
+          f"difference {best[0] - single:.4g}")
+    if not np.isfinite(best).all():
+        failures.append(f"(c) best NLLs {best}")
+    multi_rows_fp64(dev, x_np, y, cfg, card, failures)
+    smat, _, _ = timed("sense_matrix", lambda: me.sense_matrix(
+        np.full(DIM, UQSA_M), np.full(DIM, UQSA_V)), card)
+    for i, row in enumerate(smat):
+        print(f"      output {i}: S_i {np.round(row, 4).tolist()}")
+    xq = np.random.default_rng(2).uniform(size=(1000, DIM))
+    (mean, var), _, _ = timed("predict(m=1000)", lambda: me.predict(xq), card)
+    ok = (np.isfinite(smat).all() and bool(torch.isfinite(mean).all())
+          and bool(torch.isfinite(var).all()) and float(var.min()) >= 0
+          and tuple(mean.shape) == (MULTI_K, 1000))
+    if not ok:
+        failures.append("(c) non-finite or misshapen sense_matrix/predict")
+    del me
+    torch.cuda.empty_cache()
+
+
+def multi_rows_fp64(dev, x_np, y, cfg, card, failures):
+    """(c)'s batched fit and its single-output run again in fp64 on the
+    card: the rows of the outputs x restarts batch must end where output
+    0's restarts end alone (rtol MULTI_ROWS_RTOL, the same iteration
+    counts). fp64 rounding cannot steer 8 iterations apart, so a coupling
+    of the rows (in the lockstep L-BFGS, the batched Cholesky or its
+    ladder) would show here."""
+    me, _, _ = timed("fp64 MultiEmulator.fit", lambda: MultiEmulator.fit(
+        torch.Generator().manual_seed(0), x_np, y.astype(np.float64),
+        cfg=cfg, dtype=torch.float64, device=dev), card)
+    (_, info), _, _ = timed("fp64 mle_fit, output 0 alone", lambda:
+                            lbfgs.mle_fit(torch.Generator().manual_seed(0),
+                                          me.x, me.y[:, 0], me.h, cfg), card)
+    rows, alone = me.info["nlls"][0].cpu(), info["nlls"].cpu()
+    rel = float(((rows - alone).abs() / alone.abs()).max())
+    same_iters = torch.equal(me.info["iters"][0].cpu(), info["iters"].cpu())
+    ok = rel <= MULTI_ROWS_RTOL and same_iters
+    print(f"    fp64, output 0's restarts: batched {rows.tolist()}, alone "
+          f"{alone.tolist()}; max rel difference {rel:.3e} (rtol "
+          f"{MULTI_ROWS_RTOL:g}); iterations equal: {same_iters} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"(c) fp64 batched rows differ from output 0 alone "
+                        f"({rel:.3e})")
+    del me
+    torch.cuda.empty_cache()
+
+
+def phase_uqsa(dev, card):
+    """Phase 5: the UQSA path. (b)'s oracle runs in worker processes while
+    (a) and (c) use the card. Every check is collected and the phase fails
+    at its end if any failed."""
+    print(f"[phase 5] UQSA path ({card})")
+    failures = []
+    reset_counters()
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    t0 = time.perf_counter()
+    parts = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        try:
+            r10, jobs, subsets = phase_uqsa_config3(dev, card, pool)
+            parts["(b) on the card"] = time.perf_counter()
+            phase_uqsa_serving_width(dev, card, failures)
+            parts["(a)"] = time.perf_counter()
+            phase_uqsa_multi(dev, card, failures)
+            parts["(c)"] = time.perf_counter()
+            hold_config3(r10, jobs, subsets, failures)
+            parts["(b) against the oracle"] = time.perf_counter()
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+    launches = counters()
+    print(f"  launches in phase 5: {launches}")
+    t = t0
+    spans = []
+    for name, end in parts.items():
+        spans.append(f"{name} {end - t:.1f} s")
+        t = end
+    print(f"  phase 5 took {time.perf_counter() - t0:.1f} s on the host "
+          f"clock: {', '.join(spans)}")
+    if failures:
+        raise SmokeFailure("phase 5: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1369,6 +1879,7 @@ def main() -> int:
     launches, launches_highest = phase_serve(dev, card)
     phase_reference(dev)
     launches_train = phase_train(dev, card)
+    launches_uqsa = phase_uqsa(dev, card)
 
     where = {
         "K1": ("gaussian_corr_self", "gp_emu_uqsa_torch/csrc/corr_build.cu",
@@ -1388,12 +1899,15 @@ def main() -> int:
                 "K4 highest": launches_highest}
     launches_train = {**launches_train, "K4 high": launches_train["K4"],
                       "K4 highest": launches_train["K4"]}
+    launches_uqsa = {**launches_uqsa, "K4 high": launches_uqsa["K4"],
+                     "K4 highest": launches_uqsa["K4"]}
     entries = []
     for key, (name, source, replaces) in where.items():
         err, t, t_wrap, tp, (b, by), lib = rows[key]
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
                         "training_launches": launches_train[key],
+                        "uqsa_launches": launches_uqsa[key],
                         "max_abs_err": err, "ms": t, "wrapper_ms": t_wrap,
                         "plain_ms": tp, "bound_ms": b, "bound_by": by,
                         "library_ms": lib})

@@ -22,7 +22,8 @@ Every product runs in full fp32 or fp64 (`fp32_exact`: TF32 off).
 
 The likelihoods take hyperparameters with a leading batch axis (the
 restarts of a multi-restart fit: log_delta (B, d), log_sigma2 and
-log_nugget (B,)) and return one NLL per restart. They are differentiable:
+log_nugget (B,)) and return one NLL per restart; y is one (n,) for all,
+or (B, n), one a restart (`multi.MultiEmulator`). They are differentiable:
 `nll_mucm` through `_NllMucm`, whose backward is the analytic,
 factor-reusing adjoint `_nll_mucm_bwd`; `nll_gp4ml` and `nll_mucm_ad`
 through autograd (the K1 adjoint and the ladder's `_chol_rev`).
@@ -86,7 +87,8 @@ def _common(params: GPParams, x, y, h, noise_diag=None, ladder=True,
     (heteroscedastic nugget, in correlation units). ladder=False uses a
     single plain Cholesky (NaN factor on failure) instead of the ladder.
     One restart or a batch of them: every result gains the params' batch
-    axes.
+    axes. y is (n,), or (B, n) with the params' batch axis, one y a restart
+    (the outputs of a multi-output fit).
     """
     a = corr_self(x, params, family)
     if noise_diag is not None:
@@ -97,7 +99,8 @@ def _common(params: GPParams, x, y, h, noise_diag=None, ladder=True,
     else:
         l = cholesky_or_nan(a)
         jitter = torch.zeros(a.shape[:-2], dtype=a.dtype, device=a.device)
-    linv_yh = tri_solve_auto(l, torch.cat([y[:, None], h], dim=1))
+    yh = torch.cat([y[..., None], h.expand(*y.shape[:-1], *h.shape)], -1)
+    linv_yh = tri_solve_auto(l, yh)
     linv_y = linv_yh[..., 0]                         # L^-1 y
     linv_h = linv_yh[..., 1:]                        # L^-1 H
     g = linv_h.mT @ linv_h                           # H^T A^-1 H
@@ -202,6 +205,7 @@ class _NllMucm(torch.autograd.Function):
         nll, saved = _nll_mucm_fwd(params, x, y, h, ladder)
         ctx.save_for_backward(log_delta, log_sigma2, log_nugget, x, nll,
                               *saved)
+        ctx.y_shape = y.shape
         return nll
 
     @staticmethod
@@ -209,7 +213,7 @@ class _NllMucm(torch.autograd.Function):
         log_delta, log_sigma2, log_nugget, x, nll, *saved = ctx.saved_tensors
         params = GPParams(log_delta, log_sigma2, log_nugget)
         g_delta, g_nugget, g_y = _nll_mucm_bwd(params, x, saved, nll, ct)
-        g_y = g_y.reshape((-1, g_y.shape[-1])).sum(0)
+        g_y = g_y.reshape((-1,) + ctx.y_shape).sum(0)
         return (g_delta, torch.zeros_like(log_sigma2), g_nugget, None,
                 g_y if ctx.needs_input_grad[4] else None, None, None)
 

@@ -98,8 +98,14 @@ def _unpack(z: torch.Tensor, cfg: MLEConfig, d: int, dtype) -> GPParams:
 
 
 def _make_objective(x, y, h, cfg: MLEConfig, lo, hi, noise_diag=None):
-    """(objective, to_logspace, from_logspace); objective maps u (B, p) to
-    the B NLLs, differentiably."""
+    """(objective, to_logspace, from_logspace); objective(u, rows=None) maps
+    u (b, p) to the b NLLs, differentiably.
+
+    y is (n,), shared by every restart, or (B, n), one row a restart (the
+    outputs x restarts grid of `multi.MultiEmulator`): then `rows`, the
+    indices of u's rows among the B restarts, picks y's rows, and u covers
+    all B when rows is None.
+    """
     d = x.shape[1]
     dtype = x.dtype
     use_bounds = cfg.constraints != "none"
@@ -117,10 +123,11 @@ def _make_objective(x, y, h, cfg: MLEConfig, lo, hi, noise_diag=None):
             return torch.log(frac) - torch.log1p(-frac)
         return z
 
-    def objective(u):
+    def objective(u, rows=None):
         params = _unpack(to_logspace(u.to(dtype)), cfg, d, dtype)
-        return gp.nll(params, x, y, h, mode=cfg.mode, noise_diag=noise_diag,
-                      family=cfg.family)
+        y_rows = y if rows is None or y.ndim == 1 else y[rows]
+        return gp.nll(params, x, y_rows, h, mode=cfg.mode,
+                      noise_diag=noise_diag, family=cfg.family)
 
     return objective, to_logspace, from_logspace
 
@@ -264,11 +271,12 @@ def _where(mask, new: dict, old: dict) -> dict:
     return out
 
 
-def _zoom_linesearch(vg, z, direction, value, grad):
+def _zoom_linesearch(vg, z, direction, value, grad, rows):
     """optax's zoom linesearch for a batch of rows in lockstep.
 
-    vg(points (b, p)) -> (values, gradients). Returns the stepsize, value
-    and gradient each row ends at (after the safe-step rule on failure).
+    vg(points (b, p), their rows among the restarts) -> (values,
+    gradients); `rows` are z's. Returns the stepsize, value and gradient
+    each row ends at (after the safe-step rule on failure).
     """
     b = z.shape[0]
     zeros = torch.zeros(b, dtype=z.dtype, device=z.device)
@@ -315,7 +323,8 @@ def _zoom_linesearch(vg, z, direction, value, grad):
         zoom = s["interval_found"]
         step = torch.where(zoom, middle, larger)
 
-        val, g = vg(z[running] + step[:, None] * direction[running])
+        val, g = vg(z[running] + step[:, None] * direction[running],
+                    rows[running])
         sl = torch.sum(g * direction[running], -1)
         dec = _decrease_error(step, val, sl, v0, s0)
         curv = _curvature_error(sl, s0)
@@ -400,16 +409,18 @@ def run_restarts(objective, u0s: torch.Tensor, max_iters: int, tol: float):
     after `max_iters` iterations, and freezes in place if a step is not
     finite. The value of the iterate a step lands on is the linesearch's
     (the same point, the same function), so no extra evaluation is made.
-    Returns (best u (B, p), best value (B,), iterations (B,)).
+    The objective is called as objective(u, rows), rows the indices of u's
+    rows among the B restarts (`_make_objective`). Returns (best u (B, p),
+    best value (B,), iterations (B,)).
     """
     b, p = u0s.shape
     z = u0s.detach().clone()
 
-    def vg(u):
-        return value_and_grad(objective, u)
+    def vg(u, rows):
+        return value_and_grad(lambda v: objective(v, rows), u)
 
     with torch.no_grad():
-        best_v = objective(z)
+        best_v = objective(z, torch.arange(b, device=z.device))
     best_z = z.clone()
     iters = torch.zeros(b, dtype=torch.int64, device=z.device)
     gnorm = torch.full((b,), float("inf"), dtype=z.dtype, device=z.device)
@@ -426,11 +437,12 @@ def run_restarts(objective, u0s: torch.Tensor, max_iters: int, tol: float):
         stale = torch.nonzero(~torch.isfinite(val)).flatten()
         if stale.numel():
             val, g = val.clone(), g.clone()
-            val[stale], g[stale] = vg(zs[stale])
+            val[stale], g[stale] = vg(zs[stale], rows[stale])
         precond, mem = _lbfgs_update({k: v[rows] for k, v in memory.items()},
                                      zs, g)
         direction = -precond
-        step, v_new, g_new = _zoom_linesearch(vg, zs, direction, val, g)
+        step, v_new, g_new = _zoom_linesearch(vg, zs, direction, val, g,
+                                              rows)
         z_new = zs + step[:, None] * direction
         improved = (v_new < best_v[rows])[:, None]
         best_z[rows] = torch.where(improved, z_new, best_z[rows])

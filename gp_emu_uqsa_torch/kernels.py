@@ -8,8 +8,9 @@ Reference parity: GP_emu_UQSA's Gaussian (squared-exponential) correlation
 i.e. NO factor 1/2 in the exponent (MUCM convention). sigma^2 scales the
 correlation matrix into a covariance. Hyperparameters travel in log space.
 
-The general path builds the distance from the ||x||^2 + ||x'||^2 - 2 x.x'
-expansion on delta-scaled inputs, as the JAX package does. On a CUDA
+The general path sums exact differences of the delta-scaled inputs
+(`scaled_sq_dists`), where the JAX package takes the expansion
+||x||^2 + ||x'||^2 - 2 x.x', which cancels in fp32. On a CUDA
 device the gaussian family takes the hand-written kernels of
 `ops.kernel_matrix` inside the same gates as the JAX package's Pallas
 builds (`_fast_self_ok`, `_fast_cross_ok`), with "the tensor is on a CUDA
@@ -94,23 +95,64 @@ def params_from_numpy(log_delta, log_sigma2, log_nugget, *, device=None,
     return GPParams(conv(log_delta), conv(log_sigma2), conv(log_nugget))
 
 
-@fp32_exact
+class _ScaledSqDists(torch.autograd.Function):
+    """`scaled_sq_dists` with a backward that saves no (n1, n2) tensor.
+
+    Autograd through the feature loop would keep every feature's difference,
+    d tensors of shape (..., n1, n2). The backward instead recomputes the
+    exact differences a feature at a time: the delta cotangent is
+    `sq_diff_contraction` of the incoming one, the x cotangents are row and
+    column sums of it times the differences.
+    """
+
+    @staticmethod
+    def forward(ctx, x1, x2, delta):
+        ctx.save_for_backward(x1, x2, delta)
+        delta = delta[..., None, :]
+        xs1 = x1 / delta
+        xs2 = x2 / delta
+        d2 = None
+        for l in range(x1.shape[-1]):
+            t = xs1[..., :, l, None] - xs2[..., None, :, l]
+            d2 = t * t if d2 is None else torch.addcmul(d2, t, t)
+        return d2
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, delta = ctx.saved_tensors
+        gx1 = gx2 = gdelta = None
+        if ctx.needs_input_grad[2]:
+            gdelta = (-2.0 / delta**3) * sq_diff_contraction(g, x1, x2)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            # d d2_ij/d x1_il = -d d2_ij/d x2_jl = 2 (x1_il - x2_jl)/delta_l^2
+            rows, cols = [], []
+            for l in range(x1.shape[1]):
+                t = g * (x1[:, l, None] - x2[None, :, l])
+                rows.append(t.sum(-1))
+                cols.append(t.sum(-2))
+            scale = (2.0 / (delta * delta))[..., None, :]
+            gx1 = scale * torch.stack(rows, -1)
+            gx2 = -scale * torch.stack(cols, -1)
+            gx1 = gx1.reshape(-1, *x1.shape).sum(0)
+            gx2 = gx2.reshape(-1, *x2.shape).sum(0)
+        return gx1, gx2, gdelta
+
+
 def scaled_sq_dists(x1: torch.Tensor, x2: torch.Tensor,
                     delta: torch.Tensor) -> torch.Tensor:
     """sum_l ((x1_il - x2_jl)/delta_l)^2 for all pairs, shape (..., n1, n2).
 
-    The matmul expansion of the JAX package; `clamp(min=0)` removes the tiny
-    negatives it can produce. The cross product runs in full fp32 (TF32
-    off), as the JAX package pins it to HIGHEST: distances feed exp().
-    delta is (d,) or (..., d) (one set of length scales per batch entry).
+    Exact differences of the delta-scaled inputs, summed one feature at a
+    time into one (..., n1, n2) accumulator: K1's arithmetic
+    (`ops.kernel_matrix.sq_exp_plain`), so a self build has an exactly zero
+    diagonal and is exactly symmetric. The JAX package's matmul expansion
+    |a|^2 + |b|^2 - 2 a.b cancels in fp32 (tests/test_torch_uqsa.py::
+    test_plain_self_build_fp32_exact_diagonal holds the two against fp64).
+    x1 (n1, d) and x2 (n2, d); delta is (d,) or (..., d) (one set of length
+    scales per batch entry). Differentiable, and its backward keeps no
+    (n1, n2) tensor (`_ScaledSqDists`).
     """
-    delta = delta[..., None, :]
-    xs1 = x1 / delta
-    xs2 = x2 / delta
-    n1 = torch.sum(xs1 * xs1, dim=-1)[..., :, None]
-    n2 = torch.sum(xs2 * xs2, dim=-1)[..., None, :]
-    cross = xs1 @ xs2.mT
-    return torch.clamp(n1 + n2 - 2.0 * cross, min=0.0)
+    return _ScaledSqDists.apply(x1, x2, delta)
 
 
 def _safe_dist(d2: torch.Tensor) -> torch.Tensor:

@@ -166,6 +166,14 @@ def tri_inverse(l: torch.Tensor) -> torch.Tensor:
 
 
 @fp32_exact
+def spd_inverse_from_chol(l: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^-1 = L^-T L^-1 through `tri_inverse`, the product in full
+    fp32 or fp64 (TF32 off)."""
+    linv = tri_inverse(l)
+    return linv.mT @ linv
+
+
+@fp32_exact
 def cho_solve_refined(l: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                       iters: int = 1, jitter=0.0,
                       x: torch.Tensor | None = None) -> torch.Tensor:

@@ -42,6 +42,24 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_import_leaves_matplotlib_out_of_sys_modules():
+    """The card's machine has no matplotlib: the plotting functions import
+    it when called, never a module at import time."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in ['gp_emu_uqsa_torch'] + {_all_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('matplotlib'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_source_scan_finds_no_forbidden_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10

@@ -82,8 +82,26 @@ each of which fails the run with a non-zero exit:
    and a single-output fit again in fp64 (the batched rows must end where
    output 0's restarts end alone), sense_matrix and a prediction (K2),
    every launch of the phase counted.
-6. Print the kernels JSON line (each entry with its serving, training and
-   UQSA launches), the card line, and as the last line
+6. The Bayesian path, every check collected and failing the phase at its
+   end: (a) BASELINE config 4 (gp_test_posterior(1024, 8), fp32, 64
+   chains; tools/long_chain.py's settings): the batched log density and
+   gradient at the starts against fp64 within phase 4's kappa(A) budgets
+   beside the TF32-backward control; nuts_sample with 24 warmup draws at
+   max depth 4, then 8 nuts_continue segments of 8 draws at max depth 5,
+   the chain state through save_hmc_state/load_hmc_state between them and
+   one segment rerun from its checkpoint bit for bit; draws/s, ms a
+   batched leapfrog, ESS, split R-hat, accept and divergence rates, tree
+   depth, host syncs and useful chain-leaves a draw, the window's
+   launches, one evaluation's breakdown; a short hmc_sample run (printed,
+   not held); (b) NUTS on a d=2 posterior at n=512 (fp32, K1) within 5
+   Monte-Carlo standard errors of a quadrature of the same log density;
+   (c) one NUTS and one HMC transition from the same draws on the card and
+   the CPU (fp64, rtol 1e-10, flags and leaf counts equal); (d)
+   Emulator.train_bayes -> predict_bayes at m=4096 (K2) against the same
+   draws in fp64, and sample_posterior's moments against predict's; (e)
+   utils.sampler_compare.compare with a tiny budget.
+7. Print the kernels JSON line (each entry with its serving, training,
+   UQSA and sampling launches), the card line, and as the last line
    {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -97,6 +115,7 @@ import ctypes
 import dataclasses
 import importlib.util
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -117,7 +136,7 @@ from gp_emu_uqsa_torch import (
 from gp_emu_uqsa_torch.basis import basis_matrix, linear_basis
 from gp_emu_uqsa_torch.configs import Beliefs
 from gp_emu_uqsa_torch.design_inputs import optLatinHyperCube
-from gp_emu_uqsa_torch.inference import lbfgs
+from gp_emu_uqsa_torch.inference import hmc, lbfgs, nuts
 from gp_emu_uqsa_torch.multi import MultiEmulator
 from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import cholesky as chol
@@ -129,6 +148,8 @@ from gp_emu_uqsa_torch.tools import train_linalg
 from gp_emu_uqsa_torch.tools.k4_high_variants import launches_ms, ptxas_report
 from gp_emu_uqsa_torch.tools.uqsa_forms import gram_log_rho_sum
 import gp_emu_uqsa_torch.sensitivity as sensitivity
+from gp_emu_uqsa_torch.utils import roofline, sampler_compare
+from gp_emu_uqsa_torch.utils.checkpoint import load_hmc_state, save_hmc_state
 
 N_TRAIN = 16384          # training rows (BASELINE config 5)
 N_VALID = 256            # one V-set: tv_config (65, 64, 1) over 16640 rows
@@ -227,6 +248,39 @@ MULTI_K, MULTI_TRIES, MULTI_MAX_ITERS = 3, 4, 8
 # tests/test_torch_multi.py holds two fp64 L-BFGS implementations together;
 # the fp32 runs' ends differ by about 0.16 relative
 MULTI_ROWS_RTOL = 1e-6
+
+
+# phase 6, the Bayesian path. (a) BASELINE config 4 with tools/long_chain.py's
+# settings: gp_test_posterior(1024, 8) in fp32 (MUCM, nugget 1e-4), 64
+# chains, NUTS with 24 warmup draws at max depth 4, then 8 segments of 8
+# draws at max depth 5, the chain state through a checkpoint between
+# segments; one segment rerun from its checkpoint must repeat bit for bit.
+# The chains start at log delta ~ N(0, 0.25^2) (long_chain.py starts them
+# all at 0), so the log density is held at 64 different points.
+BAYES_N, BAYES_D, BAYES_CHAINS = 1024, 8, 64
+BAYES_WARMUP, BAYES_WARMUP_DEPTH = 24, 4
+BAYES_SEGMENTS, BAYES_SEGMENT_DRAWS, BAYES_DEPTH = 8, 8, 5
+BAYES_RERUN_SEGMENT = 3
+BAYES_START_SD = 0.25
+HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 24, 16, 8
+# (b) a d = 2 posterior at n = 512 (fp32: K1 runs), NUTS against a
+# quadrature of the same log density: mean and sd of each log delta within
+# QUAD_MCSE Monte-Carlo standard errors (sd / sqrt(ESS))
+QUAD_N, QUAD_CHAINS, QUAD_WARMUP, QUAD_DRAWS, QUAD_DEPTH = 512, 16, 200, 400, 6
+QUAD_GRID, QUAD_CHUNK, QUAD_MCSE = 80, 256, 5.0
+# (c) one NUTS and one HMC transition from the same draws, card and CPU,
+# fp64: z relative, the accept statistic absolute (it lies in [0, 1], and
+# relative to a statistic near 0 the same rounding reads 7.7e-10)
+CPU_N, CPU_CHAINS, CPU_DEPTH, CPU_RTOL, CPU_ACCEPT_ATOL = \
+    256, 8, 5, 1e-10, 1e-10
+# (d) predict_bayes against the same draws in fp64 on the card, with phase
+# 3b's budgets (mean error relative to the largest mean, variance error
+# relative to sigma2); sample_posterior's moments against predict's (its
+# covariance with the jitter that the t scale matrix's fp32 factor took)
+# within POST_MCSE Monte-Carlo standard errors for the mean's 256 entries
+# and POST_COV_MCSE for the covariance's 32,896
+PRED_M, PRED_DRAWS = 4096, 32
+POST_M, POST_DRAWS, POST_MCSE, POST_COV_MCSE = 256, 2000, 5.0, 6.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1839,6 +1893,457 @@ def phase_uqsa(dev, card):
     return launches
 
 
+def _sum_counts(all_counts):
+    """The step functions' counts (inference.nuts.new_counts) added up, as
+    Python numbers."""
+    total = {}
+    for counts in all_counts:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + (int(v) if torch.is_tensor(v) else v)
+    return total
+
+
+def hold_logdensity(ld32, x, y, h, cfg, z0, failures):
+    """The batched log density and its gradient at the chains' starts,
+    fp32 (K1, the analytic adjoint) against fp64 on the card, within phase
+    4's kappa(A) budgets, beside the TF32-backward control (printed)."""
+    x64, y64, h64 = x.double(), y.double(), h.double()
+    ld64 = hmc.make_gp_logdensity(x64, y64, h64, cfg)
+    v32, g32 = hmc.value_and_grad(ld32, z0)
+    v64, g64 = hmc.value_and_grad(ld64, z0.double())
+    with torch.no_grad():
+        params = lbfgs._unpack(z0.double(), cfg, x.shape[1], torch.float64)
+        kappa = kappa_fp64(kernels.corr_self(x64, params))
+    ctrl = value_and_grad_tf32_backward(ld32, z0)[1]
+    nll_err, grad_err = rel_errors(v32, g32, v64, g64)
+    nll_b, grad_b = fp32_budgets(kappa)
+    ctrl_err = rel_errors(v32, ctrl, v64, g64)[1]
+    print(f"    log density at the {z0.shape[0]} starts, fp32 vs fp64: "
+          f"kappa(A) {float(kappa.min()):.3e} to {float(kappa.max()):.3e}; "
+          f"worst value err / budget {float((nll_err / nll_b).max()):.3f}, "
+          f"worst gradient err / budget {float((grad_err / grad_b).max()):.3f}"
+          f" (gradient err up to {float(grad_err.max()):.3e}); control, TF32 "
+          f"backward: worst gradient err / budget "
+          f"{float((ctrl_err / grad_b).max()):.3f}, over budget at "
+          f"{int((ctrl_err > grad_b).sum())} starts")
+    if not bool(torch.isfinite(v64).all() & (v64 > -1e11).all()):
+        failures.append("(a) the fp64 log density failed at a start")
+    bad = (nll_err > nll_b) | (grad_err > grad_b)
+    if bool(bad.any()):
+        failures.append(f"(a) log density fp32 vs fp64 over budget at starts "
+                        f"{torch.nonzero(bad).flatten().tolist()}")
+    # printed, not required to break a budget: at n = 1024 the TF32
+    # backward's error stays well inside the kappa(A) budgets (PERF.md §6)
+
+
+def bayes_config4(dev, card, failures):
+    """(a) BASELINE config 4 on one card: NUTS warmup, checkpointed
+    segments, a bitwise rerun, the statistics and the costs; then a short
+    HMC run, printed and not held."""
+    x, y, h, cfg = roofline.gp_test_posterior(BAYES_N, BAYES_D, torch.float32,
+                                              dev)
+    ld32 = hmc.make_gp_logdensity(x, y, h, cfg)
+    tf32_seen = set()
+
+    def ld(z):
+        tf32_seen.add(torch.backends.cuda.matmul.allow_tf32)
+        return ld32(z)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    z0 = BAYES_START_SD * torch.randn((BAYES_CHAINS, BAYES_D), generator=gen,
+                                      device=dev)
+    print(f"  (a) BASELINE config 4: n={BAYES_N}, d={BAYES_D}, fp32, "
+          f"{BAYES_CHAINS} chains, NUTS ({card})")
+    hold_logdensity(ld32, x, y, h, cfg, z0, failures)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_chain_"))
+    try:
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        warm, wstats = nuts.nuts_sample(
+            gen, ld, z0, hmc.HMCConfig(n_warmup=BAYES_WARMUP, n_samples=1),
+            max_depth=BAYES_WARMUP_DEPTH)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        state = tmp / "state"
+        save_hmc_state(state, warm[:, -1], wstats["step_size"],
+                       wstats["inv_mass"], gen, meta={"segments_done": 0})
+        segments, seg_ms, seg_stats, seg_counts = [], [], [], []
+        for k in range(BAYES_SEGMENTS):
+            z, eps, im, g, meta = load_hmc_state(state, device=dev)
+            if meta["segments_done"] != k:
+                failures.append(f"(a) checkpoint meta {meta} at segment {k}")
+            if k == BAYES_RERUN_SEGMENT:
+                for suffix in (".npz", ".json"):
+                    shutil.copy(state.with_suffix(suffix),
+                                (tmp / "rerun").with_suffix(suffix))
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            zs, st, g = nuts.nuts_continue(g, ld, z, eps, im,
+                                           BAYES_SEGMENT_DRAWS,
+                                           max_depth=BAYES_DEPTH)
+            stop.record()
+            stop.synchronize()
+            seg_ms.append(start.elapsed_time(stop))
+            segments.append(zs)
+            seg_stats.append(st)
+            seg_counts.append(st["counts"])
+            save_hmc_state(state, zs[:, -1], eps, im, g,
+                           meta={"segments_done": k + 1})
+        launches = counters()
+        # the rerun of one segment from its checkpoint
+        z, eps, im, g, _ = load_hmc_state(tmp / "rerun", device=dev)
+        rerun, _, _ = nuts.nuts_continue(g, ld, z, eps, im,
+                                         BAYES_SEGMENT_DRAWS,
+                                         max_depth=BAYES_DEPTH)
+        same = torch.equal(rerun, segments[BAYES_RERUN_SEGMENT])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    draws = torch.cat(segments, 1)
+    warm_counts = _sum_counts([wstats["counts"]])
+    counts = _sum_counts(seg_counts)
+    n_draws = BAYES_SEGMENTS * BAYES_SEGMENT_DRAWS
+    sampling_s = sum(seg_ms) / 1e3
+    e = hmc.ess(draws.double())
+    rhat = hmc.split_rhat(draws.double())
+    accept = float(torch.stack([st["accept_rate"] for st in seg_stats]).mean())
+    div = float(torch.stack([st["divergence_rate"]
+                             for st in seg_stats]).mean())
+    evals = warm_counts["evaluations"] + counts["evaluations"]
+    # one batched leapfrog and one evaluation, CUDA events (median of 5)
+    zl = draws[:, -1]
+    v0, g0 = hmc.value_and_grad(ld32, zl)
+    p = torch.randn(zl.shape, generator=gen, device=dev)
+    leap_ms, _ = time_ms(lambda: hmc._leapfrog(
+        lambda z: hmc.value_and_grad(ld32, z), zl, p, v0, g0, im, eps, 1))
+    eval_ms, _ = time_ms(lambda: hmc.value_and_grad(ld32, zl))
+    print(f"    warmup: {BAYES_WARMUP} draws at depth {BAYES_WARMUP_DEPTH} in "
+          f"{warm_s:.2f} s ({warm_counts['evaluations']} evaluations); "
+          f"step size {float(wstats['step_size']):.4g}, inverse mass "
+          f"{[round(v, 4) for v in wstats['inv_mass'].tolist()]}")
+    print(f"    sampling: {n_draws} draws x {BAYES_CHAINS} chains at depth "
+          f"{BAYES_DEPTH} in {BAYES_SEGMENTS} checkpointed segments, "
+          f"{sampling_s:.3f} s (CUDA events; segments "
+          f"{[round(t / 1e3, 2) for t in seg_ms]} s): "
+          f"{BAYES_CHAINS * n_draws / sampling_s:.1f} post-warmup draws/s "
+          f"({card})")
+    print(f"    ESS min {e.min():.1f}, median {np.median(e):.1f} of "
+          f"{BAYES_CHAINS * n_draws}; min ESS/s {e.min() / sampling_s:.2f}; "
+          f"max split R-hat {float(rhat.max()):.4f}; accept rate {accept:.3f}; "
+          f"divergence rate {div:.4f}")
+    per_draw = lambda key: counts[key] / counts["transitions"]
+    useful, slots = counts["useful_chain_leaves"], counts["chain_leaves"]
+    print(f"    per draw: {per_draw('evaluations'):.2f} evaluations (leaves "
+          f"+ 1), {per_draw('host_syncs'):.2f} host syncs, mean tree depth "
+          f"{per_draw('tree_depths') / BAYES_CHAINS:.2f}; useful "
+          f"chain-leaves {useful} of {slots} evaluated "
+          f"({100 * useful / slots:.1f}%)")
+    print(f"    one batched leapfrog ({BAYES_CHAINS} chains x n={BAYES_N}): "
+          f"{leap_ms:.3f} ms; one value and gradient {eval_ms:.3f} ms (CUDA "
+          f"events, median of 5); launches in the window (warmup and "
+          f"segments): {launches}; {evals} evaluations; TF32 flag inside "
+          f"the sampler loop: {sorted(tf32_seen)}")
+    print(f"    segment {BAYES_RERUN_SEGMENT} rerun from its checkpoint: "
+          f"bitwise equal {same}")
+    breakdown = evaluation_breakdown(
+        f"one log-density evaluation, {BAYES_CHAINS} chains, n={BAYES_N}, "
+        f"fp32", ld32, zl, card)
+    if not same:
+        failures.append("(a) the segment rerun from its checkpoint differs")
+    if not bool(torch.isfinite(draws).all()):
+        failures.append("(a) non-finite draws")
+    eps_f = float(wstats["step_size"])
+    if not (math.isfinite(eps_f) and eps_f > 0):
+        failures.append(f"(a) step size {eps_f}")
+    im_w = wstats["inv_mass"]
+    if not bool((torch.isfinite(im_w) & (im_w > 0)).all()):
+        failures.append(f"(a) inverse mass {im_w.tolist()}")
+    if tf32_seen != {False}:
+        failures.append(f"(a) TF32 on inside the sampler loop: {tf32_seen}")
+    if launches["K1"] != BAYES_CHAINS * evals:
+        failures.append(f"(a) K1 launched {launches['K1']} times for "
+                        f"{evals} evaluations of {BAYES_CHAINS} chains")
+
+    # HMC for its path and timing; it does not converge on this posterior
+    # in so few draws (docs/samplers.md), so its statistics are not held
+    gen_h = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs, hst = hmc.hmc_sample(gen_h, ld32, z0, hmc.HMCConfig(
+        n_warmup=HMC_WARMUP, n_samples=HMC_DRAWS, n_leapfrog=HMC_LEAPFROG))
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t0
+    he = hmc.ess(hs.double())
+    hmc_evals = (HMC_WARMUP + HMC_DRAWS) * (HMC_LEAPFROG + 1)
+    print(f"    HMC, {HMC_LEAPFROG} leapfrogs, {HMC_WARMUP} + {HMC_DRAWS} "
+          f"draws: {hmc_s:.2f} s ({hmc_evals} evaluations); accept rate {float(hst['accept_rate']):.3f}, "
+          f"divergence rate {float(hst['divergence_rate']):.4f}, ESS min "
+          f"{he.min():.1f}, max split R-hat "
+          f"{float(hmc.split_rhat(hs.double()).max()):.3f} (not held)")
+    if not bool(torch.isfinite(hs).all()):
+        failures.append("(a) HMC: non-finite draws")
+    return {"x": x, "y": y, "draws": draws, "launches": launches,
+            "breakdown": breakdown}
+
+
+def _quadrature(ld, lo, hi, k):
+    """Weights of the log density on a k x k grid of [lo, hi]: (points,
+    mean, sd, weight on the rim), fp64 moments of fp32 evaluations in
+    chunks of QUAD_CHUNK points."""
+    dev = lo.device
+    axes = [torch.linspace(float(lo[i]), float(hi[i]), k, dtype=torch.float64,
+                           device=dev) for i in range(2)]
+    pts = torch.cartesian_prod(*axes)
+    with torch.no_grad():
+        logp = torch.cat([ld(c.float()) for c in pts.split(QUAD_CHUNK)])
+    logp = logp.double()
+    w = torch.exp(logp - logp.max())
+    w = w / w.sum()
+    mean = w @ pts
+    sd = torch.sqrt(w @ (pts - mean) ** 2)
+    rim = ((pts[:, 0] == axes[0][0]) | (pts[:, 0] == axes[0][-1])
+           | (pts[:, 1] == axes[1][0]) | (pts[:, 1] == axes[1][-1]))
+    return mean, sd, float(w[rim].sum())
+
+
+def bayes_quadrature(dev, card, failures):
+    """(b) NUTS on a d = 2 GP posterior (n = 512, fp32) against a
+    quadrature of the same log density on the card."""
+    rng = np.random.default_rng(5)
+    x_np = rng.uniform(size=(QUAD_N, 2))
+    a = np.exp(-(((x_np[:, None, :] - x_np[None, :, :])
+                  / np.array([0.4, 0.7])) ** 2).sum(-1)) + 1e-6 * np.eye(QUAD_N)
+    y_np = np.linalg.cholesky(a) @ rng.standard_normal(QUAD_N)
+    x = torch.as_tensor(x_np, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(y_np, dtype=torch.float32, device=dev)
+    h = basis_matrix(x, linear_basis(2))
+    ld = hmc.make_gp_logdensity(x, y, h, lbfgs.MLEConfig(nugget=NUGGET))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    z0 = 0.1 * torch.randn((QUAD_CHAINS, 2), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    samples, stats = nuts.nuts_sample(
+        gen, ld, z0, hmc.HMCConfig(n_warmup=QUAD_WARMUP, n_samples=QUAD_DRAWS),
+        max_depth=QUAD_DEPTH)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    draws = samples.double()
+    # zoom in on the mass: three 40 x 40 grids, then the 80 x 80 one
+    lo = torch.tensor([-4.0, -4.0], dtype=torch.float64, device=dev)
+    hi = torch.tensor([3.0, 3.0], dtype=torch.float64, device=dev)
+    t1 = time.perf_counter()
+    for _ in range(3):
+        mean, sd, _ = _quadrature(ld, lo, hi, 40)
+        half = torch.maximum(7.0 * sd, 2.0 * (hi - lo) / 39)
+        lo, hi = mean - half, mean + half
+    q_mean, q_sd, rim = _quadrature(ld, lo, hi, QUAD_GRID)
+    quad_s = time.perf_counter() - t1
+    flat = draws.reshape(-1, 2)
+    e = torch.as_tensor(hmc.ess(draws), device=dev)
+    d_mean, d_sd = flat.mean(0), flat.std(0)
+    mcse = d_sd / torch.sqrt(e)
+    z_mean = (d_mean - q_mean).abs() / mcse
+    z_sd = (d_sd - q_sd).abs() / mcse
+    evals = stats["counts"]["evaluations"]
+    print(f"  (b) NUTS on a d=2 posterior, n={QUAD_N}, fp32, {QUAD_CHAINS} "
+          f"chains, {QUAD_WARMUP} + {QUAD_DRAWS} draws: {run_s:.2f} s, "
+          f"{evals} evaluations ({1e3 * run_s / evals:.2f} ms each); accept "
+          f"{float(stats['accept_rate']):.3f}, divergences "
+          f"{float(stats['divergence_rate']):.4f}, ESS "
+          f"{[round(v, 1) for v in e.tolist()]}")
+    print(f"    quadrature ({QUAD_GRID} x {QUAD_GRID} over {lo.tolist()} .. "
+          f"{hi.tolist()}, rim weight {rim:.2e}, {quad_s:.2f} s): mean "
+          f"{q_mean.tolist()}, sd {q_sd.tolist()}; draws: mean "
+          f"{d_mean.tolist()}, sd {d_sd.tolist()}; |difference| / MCSE: mean "
+          f"{z_mean.tolist()}, sd {z_sd.tolist()} (held to {QUAD_MCSE:g})")
+    if rim > 1e-6:
+        failures.append(f"(b) the quadrature's box misses mass: rim {rim:.2e}")
+    if not bool(((z_mean < QUAD_MCSE) & (z_sd < QUAD_MCSE)).all()):
+        failures.append("(b) draws off the quadrature by more than "
+                        f"{QUAD_MCSE:g} MCSE")
+
+
+def bayes_card_vs_cpu(dev, failures):
+    """(c) One NUTS and one HMC transition, fp64, the same pre-drawn
+    tensors on the card and on the CPU."""
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(3)
+    z = 0.3 * torch.randn((CPU_CHAINS, BAYES_D), generator=gen,
+                          dtype=torch.float64)
+    nd = nuts._nuts_draws(gen, z, CPU_DEPTH)
+    noise, u = hmc._hmc_draws(gen, z)
+    eps = torch.tensor(0.05, dtype=torch.float64)
+    out = []
+    for device in (cpu, dev):
+        x, y, h, cfg = roofline.gp_test_posterior(CPU_N, BAYES_D,
+                                                  torch.float64, device)
+        ld = hmc.make_gp_logdensity(x, y, h, cfg)
+        ld_grad = lambda zz, f=ld: hmc.value_and_grad(f, zz)
+        im = torch.ones(BAYES_D, dtype=torch.float64, device=device)
+        counts = nuts.new_counts()
+        res_n = nuts._nuts_transition(
+            ld_grad, z.to(device), nuts.NutsDraws(*(t.to(device) for t in nd)),
+            eps.to(device), im, CPU_DEPTH, 1000.0, counts)
+        res_h = hmc._hmc_transition(ld_grad, z.to(device), noise.to(device),
+                                    u.to(device), eps.to(device), im,
+                                    hmc.HMCConfig(n_leapfrog=HMC_LEAPFROG))
+        out.append(([t.cpu() for t in res_n], [t.cpu() for t in res_h],
+                    counts["leaves"], int(counts["useful_chain_leaves"])))
+    (cn, ch, cl, cu), (gn, gh, gl, gu) = out
+    z_err, acc_err = {}, {}
+    for name, c, g in (("NUTS", cn, gn), ("HMC", ch, gh)):
+        z_err[name] = float(((c[0] - g[0]).abs()
+                             / c[0].abs().clamp(min=1e-300)).max())
+        acc_err[name] = float((c[1] - g[1]).abs().max())
+        if not torch.equal(c[2], g[2]):
+            failures.append(f"(c) {name}: the divergence flags differ")
+    print(f"  (c) card vs CPU, fp64, n={CPU_N}, {CPU_CHAINS} chains, from the "
+          f"same draws: z relative difference {z_err} (held to "
+          f"{CPU_RTOL:g}); accept statistic absolute difference {acc_err} "
+          f"(held to {CPU_ACCEPT_ATOL:g}); NUTS leaves {gl} / {cl}, useful "
+          f"chain-leaves {gu} / {cu}; divergent {int(cn[2].sum())} (NUTS), "
+          f"{int(ch[2].sum())} (HMC)")
+    if max(z_err.values()) > CPU_RTOL:
+        failures.append(f"(c) card vs CPU z beyond {CPU_RTOL:g}: {z_err}")
+    if max(acc_err.values()) > CPU_ACCEPT_ATOL:
+        failures.append(f"(c) card vs CPU accept statistic beyond "
+                        f"{CPU_ACCEPT_ATOL:g}: {acc_err}")
+    if (gl, gu) != (cl, cu):
+        failures.append("(c) the NUTS leaf counts differ")
+
+
+def _mean_sigma2(emul, max_draws):
+    """The fp64 sigma2 of the draws predict_bayes marginalizes over."""
+    x, y, h = emul.train_view()
+    flat = emul.hyper_samples.reshape(-1, emul.hyper_samples.shape[-1])
+    flat = flat[::max(1, flat.shape[0] // max_draws)][:max_draws]
+    s2 = [gp.fit(lbfgs._unpack(z, emul.mle_config, x.shape[1], x.dtype), x,
+                 y, h).sigma2 for z in flat]
+    return float(torch.stack(s2).mean())
+
+
+def bayes_predict(dev, card, failures, a):
+    """(d) Emulator.train_bayes -> predict_bayes at (a)'s data against the
+    same draws in fp64; sample_posterior's moments against predict's."""
+    x_np = a["x"].cpu().double().numpy()
+    y_np = a["y"].cpu().double().numpy()
+    centre = a["draws"].double().reshape(-1, BAYES_D).mean(0).cpu().numpy()
+    emul = Emulator.from_arrays(x_np, y_np, tv_config=(8, 0, 1),
+                                nugget=NUGGET, dtype=torch.float32,
+                                device=dev, seed=0)
+    emul.params = params_from_numpy(centre, 0.0, np.log(NUGGET), device=dev,
+                                    dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = emul.train_bayes(n_chains=16, n_warmup=16, n_samples=8,
+                             max_depth=4, generator=gen)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    xq = np.random.default_rng(8).uniform(size=(PRED_M, BAYES_D))
+    t_pred, (mean, var) = time_ms(lambda: emul.predict_bayes(
+        xq, max_draws=PRED_DRAWS), reps=3)
+    ref = Emulator.from_arrays(x_np, y_np, tv_config=(8, 0, 1), nugget=NUGGET,
+                               dtype=torch.float64, device=dev, seed=0)
+    ref.n_folded = emul.n_folded
+    ref.hyper_samples = emul.hyper_samples.double()
+    m64, v64 = ref.predict_bayes(xq, max_draws=PRED_DRAWS)
+    s64 = _mean_sigma2(ref, PRED_DRAWS)
+    rel_mean = float((mean.double() - m64).abs().max() / m64.abs().max())
+    rel_var = float((var.double() - v64).abs().max() / s64)
+    print(f"  (d) train_bayes (16 chains, 16 + 8 draws, depth 4) {t_train:.2f} "
+          f"s, accept {float(stats['accept_rate']):.3f}; predict_bayes with "
+          f"{PRED_DRAWS} draws at m={PRED_M}: {t_pred:.2f} ms (CUDA events, "
+          f"median of 3; {card}); against the same draws in fp64: mean rel "
+          f"err {rel_mean:.3e} (< 1e-3), var err / sigma2 {rel_var:.3e} "
+          f"(< 1e-2)")
+    if not (rel_mean < 1e-3 and rel_var < 1e-2):
+        failures.append("(d) predict_bayes fp32 disagrees with fp64")
+    if not bool(torch.isfinite(mean).all() & (var >= 0).all()):
+        failures.append("(d) predict_bayes: non-finite mean or negative var")
+
+    x, y, h = emul.train_view()
+    params = lbfgs._unpack(torch.as_tensor(centre, dtype=torch.float32,
+                                           device=dev),
+                           emul.mle_config, BAYES_D, torch.float32)
+    state = gp.fit(params, x, y, h)
+    xs, hs = emul._prepare_inputs(xq[:POST_M])
+    t_post, draws = time_ms(lambda: gp.sample_posterior(
+        torch.Generator(device=dev).manual_seed(9), state, x, h, xs, hs,
+        POST_DRAWS), reps=3)
+    pm, pc = gp.predict(state, x, h, xs, hs, full_cov=True)
+    # the covariance the draws have: the t scale matrix with the jitter its
+    # factor took (the ladder of gp.sample_posterior), times dof/(dof - 2)
+    dof = x.shape[0] - h.shape[1]
+    scale = pc * ((dof - 2.0) / dof)
+    jitter = float(chol.cholesky_with_jitter(scale)[1])
+    d64, pm, pc = draws.double(), pm.double(), pc.double()
+    sampled = pc + jitter * dof / (dof - 2.0) * torch.eye(
+        POST_M, dtype=torch.float64, device=dev)
+    n = POST_DRAWS
+    emp = torch.cov(d64.T)
+
+    def worst(cov):
+        sd = torch.sqrt(torch.diagonal(cov))
+        z_m = float(((d64.mean(0) - pm).abs() / (sd / n ** 0.5)).max())
+        se = torch.sqrt((torch.outer(sd ** 2, sd ** 2) + cov ** 2) / n)
+        return z_m, float(((emp - cov).abs() / se).max())
+
+    z_mean, z_cov = worst(sampled)
+    diag = torch.diagonal(pc)
+    print(f"    sample_posterior, m={POST_M}, {POST_DRAWS} draws: {t_post:.2f} "
+          f"ms; the scale matrix's factor took jitter {jitter:.3e} (predictive "
+          f"variances {float(diag.min()):.3e} to {float(diag.max()):.3e}); "
+          f"against predict's covariance with that jitter: worst mean error "
+          f"{z_mean:.2f} MCSE (held to {POST_MCSE:g}), worst covariance "
+          f"error {z_cov:.2f} MCSE (held to {POST_COV_MCSE:g}); against "
+          f"predict's covariance itself: {worst(pc)[1]:.2f} MCSE")
+    if not bool(torch.isfinite(draws).all()):
+        failures.append("(d) sample_posterior: non-finite draws")
+    if z_mean > POST_MCSE or z_cov > POST_COV_MCSE:
+        failures.append("(d) sample_posterior's moments are off predict's")
+
+
+def phase_bayes(dev, card):
+    """Phase 6: the Bayesian path. Every check is collected and the phase
+    fails at its end if any failed. Its launches are counted over the whole
+    phase; (a) prints its own window."""
+    print(f"[phase 6] Bayesian path ({card})")
+    failures = []
+    reset_counters()
+    t0 = time.perf_counter()
+    parts = {}
+    a = bayes_config4(dev, card, failures)
+    parts["(a)"] = time.perf_counter()
+    bayes_quadrature(dev, card, failures)
+    parts["(b)"] = time.perf_counter()
+    bayes_card_vs_cpu(dev, failures)
+    parts["(c)"] = time.perf_counter()
+    bayes_predict(dev, card, failures, a)
+    parts["(d)"] = time.perf_counter()
+    res = sampler_compare.compare(n_warmup=20, n_samples=20, n_leapfrog=8,
+                                  max_depth=4)
+    print(f"  (e) sampler_compare.compare(n_warmup=20, n_samples=20, "
+          f"n_leapfrog=8, max_depth=4): {json.dumps(res)}")
+    parts["(e)"] = time.perf_counter()
+    launches = counters()
+    print(f"  launches in phase 6: {launches}")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        failures.append(f"phase 6: K1 and K2 must launch: {launches}")
+    t = t0
+    spans = []
+    for name, end in parts.items():
+        spans.append(f"{name} {end - t:.1f} s")
+        t = end
+    print(f"  phase 6 took {time.perf_counter() - t0:.1f} s on the host "
+          f"clock: {', '.join(spans)}")
+    if failures:
+        raise SmokeFailure("phase 6: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1880,6 +2385,7 @@ def main() -> int:
     phase_reference(dev)
     launches_train = phase_train(dev, card)
     launches_uqsa = phase_uqsa(dev, card)
+    launches_bayes = phase_bayes(dev, card)
 
     where = {
         "K1": ("gaussian_corr_self", "gp_emu_uqsa_torch/csrc/corr_build.cu",
@@ -1901,6 +2407,8 @@ def main() -> int:
                       "K4 highest": launches_train["K4"]}
     launches_uqsa = {**launches_uqsa, "K4 high": launches_uqsa["K4"],
                      "K4 highest": launches_uqsa["K4"]}
+    launches_bayes = {**launches_bayes, "K4 high": launches_bayes["K4"],
+                      "K4 highest": launches_bayes["K4"]}
     entries = []
     for key, (name, source, replaces) in where.items():
         err, t, t_wrap, tp, (b, by), lib = rows[key]
@@ -1908,6 +2416,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[key],
                         "training_launches": launches_train[key],
                         "uqsa_launches": launches_uqsa[key],
+                        "sampling_launches": launches_bayes[key],
                         "max_abs_err": err, "ms": t, "wrapper_ms": t_wrap,
                         "plain_ms": tp, "bound_ms": b, "bound_by": by,
                         "library_ms": lib})

@@ -12,8 +12,10 @@ trained emulator also loads from a checkpoint (`utils.checkpoint`).
 (`optimize`, `inference.mle_fit`), validation against each V set, fold the
 V set into T and retrain, then `final_build` on all data, which writes the
 updated beliefs and the reordered inputs/outputs ("-f" suffix) beside the
-files it read. The Bayesian half (`train_bayes`, `predict_bayes`) is not
-ported yet.
+files it read. The Bayesian half samples the hyperparameters instead:
+`train_bayes` (MLE for the centre, then NUTS or HMC chains on the device,
+`inference.nuts` / `inference.hmc`) and `predict_bayes` (the predictive
+marginalized over the draws, `inference.hmc.predict_marginalized`).
 
 Serving tiers (`predict(serve=...)`), named after what they run:
 
@@ -89,6 +91,8 @@ class Emulator:
     dtype: torch.dtype = torch.float64
     seed: int = 0
     device: Optional[torch.device] = None
+    # hyperparameter draws of train_bayes: (chains, n_samples, p) log space
+    hyper_samples: Optional[torch.Tensor] = None
     # serving cache: (FitState, Predictor), rebuilt when the state changes
     _serve_cache: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -312,6 +316,82 @@ class Emulator:
             mean, var = gp.predict_batched(
                 self._serving(), x, xs, hs, include_nugget=include_nugget,
                 family=self.mle_config.family)
+        if self.fixed_beta is not None:
+            hraw = basis_matrix(xs, self.spec)
+            mean = mean + hraw @ self._tensor(self.fixed_beta)
+        return mean, var
+
+    def train_bayes(
+        self,
+        *,
+        sampler: str = "nuts",
+        n_chains: int = 8,
+        n_warmup: int = 500,
+        n_samples: int = 500,
+        max_depth: int = 8,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Full-Bayes hyperparameter inference on all data.
+
+        Runs MLE first when there are no params (for initialization), then
+        NUTS or HMC chains started 0.1 (in log space) around the MLE
+        centre. Stores the draws (chains, n_samples, p) in
+        self.hyper_samples; predict_bayes() marginalizes. Returns the
+        sampler stats dict.
+
+        `generator` defaults to a torch.Generator on the emulator's device
+        seeded with seed + 1000 (the JAX package seeds its key the same
+        way; the draws differ). sampler="nuts" is the JAX package's
+        measured default (docs/samplers.md).
+        """
+        from gp_emu_uqsa_torch.inference.hmc import (
+            HMCConfig, hmc_sample, make_gp_logdensity,
+        )
+        from gp_emu_uqsa_torch.inference.nuts import nuts_sample
+
+        if sampler not in ("nuts", "hmc"):
+            raise ValueError(f"unknown sampler {sampler!r}; 'nuts' or 'hmc'")
+        self.n_folded = self.splits.n_v_sets
+        if self.params is None:
+            self.optimize()
+        x, y, h = self.train_view()
+        logdensity = make_gp_logdensity(x, y, h, self.mle_config)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.seed + 1000)
+        # start chains jittered around the MLE, in the order of the
+        # sampled vector: log delta, then log sigma2 (gp4ml), log nugget
+        d = x.shape[1]
+        parts = [self.params.log_delta.reshape(d)]
+        if self.mle_config.mode == "gp4ml":
+            parts.append(self.params.log_sigma2.reshape(1))
+        if self.mle_config.train_nugget:
+            parts.append(self.params.log_nugget.reshape(1))
+        center = torch.cat(parts).to(self.dtype)
+        z0 = center + 0.1 * torch.randn((n_chains, center.shape[0]),
+                                        generator=generator, dtype=self.dtype,
+                                        device=self.device)
+        cfg = HMCConfig(n_warmup=n_warmup, n_samples=n_samples)
+        if sampler == "nuts":
+            samples, stats = nuts_sample(generator, logdensity, z0, cfg,
+                                         max_depth=max_depth)
+        else:
+            samples, stats = hmc_sample(generator, logdensity, z0, cfg)
+        self.hyper_samples = samples
+        return stats
+
+    def predict_bayes(self, x_new, *, max_draws: int = 32):
+        """Posterior-predictive mean/var marginalized over train_bayes draws."""
+        from gp_emu_uqsa_torch.inference.hmc import predict_marginalized
+
+        if self.hyper_samples is None:
+            raise RuntimeError("call train_bayes() first")
+        x, y, h = self.train_view()
+        xs, hs = self._prepare_inputs(x_new)
+        mean, var = predict_marginalized(
+            self.hyper_samples, x, y, h, xs, hs, self.mle_config,
+            max_draws=max_draws,
+        )
         if self.fixed_beta is not None:
             hraw = basis_matrix(xs, self.spec)
             mean = mean + hraw @ self._tensor(self.fixed_beta)

@@ -28,7 +28,9 @@ or (B, n), one a restart (`multi.MultiEmulator`). They are differentiable:
 factor-reusing adjoint `_nll_mucm_bwd`; `nll_gp4ml` and `nll_mucm_ad`
 through autograd (the K1 adjoint and the ladder's `_chol_rev`).
 
-Not ported yet: `sample_posterior` (it comes with the samplers).
+`sample_posterior` draws from the predictive distribution through an
+explicit `torch.Generator`; its deterministic half,
+`sample_posterior_from_draws`, takes the normals and chi-square draws.
 """
 from __future__ import annotations
 
@@ -415,6 +417,59 @@ def predict_batched(pred: Predictor, x, xstar, hstar, *, batch: int = 65536,
         means.append(mean)
         variances.append(var)
     return torch.cat(means), torch.cat(variances)
+
+
+@fp32_exact
+def sample_posterior_from_draws(mean, cov, dof: int, z, g=None, *,
+                                student_t: bool = True):
+    """The deterministic half of `sample_posterior`: mean (m,), cov (m, m)
+    the predictive covariance, z (n_draws, m) standard normals, g
+    (n_draws, 1) chi-square draws with dof degrees of freedom (unused when
+    student_t is False). Returns (n_draws, m)."""
+    scale = cov * ((dof - 2.0) / dof) if student_t else cov
+    ls, _ = cholesky_with_jitter(scale)
+    colored = z @ ls.T
+    if student_t:
+        colored = torch.sqrt(dof / g) * colored
+    return mean[None, :] + colored
+
+
+@fp32_exact
+def sample_posterior(generator: torch.Generator, state: FitState, x, h,
+                     xstar, hstar, n_draws: int = 1, *,
+                     include_nugget: bool = False, student_t: bool = True,
+                     family: str = "gaussian"):
+    """Joint draws from the predictive distribution at xstar, shape (n_draws, m).
+
+    MUCM-mode fits have a multivariate Student-t predictive with dof = n - q
+    (SURVEY.md S7 'Student-t posterior with n-q dof'); draws use the scale-
+    mixture form  y* = mean + sqrt(dof/g) * Ls z,  z ~ N(0, I),
+    g ~ chi^2_dof, with Ls the Cholesky (with the jitter ladder) of the t
+    *scale* matrix Sigma_scale = cov * (dof-2)/dof (predict() returns the t
+    covariance, which already carries the n-q-2 divisor through
+    state.sigma2). `student_t=False` gives plain Gaussian draws (gp4ml-mode
+    fits). z and g come from `generator`, on the state's device.
+    """
+    n, q = state.l.shape[0], state.lg.shape[0]
+    dof = n - q
+    if student_t and dof <= 2:
+        raise ValueError(
+            f"student_t draws need n - q > 2 (got n={n}, q={q}: the t scale "
+            "matrix (dof-2)/dof * cov would be non-positive). Pass "
+            "student_t=False (gp4ml-mode Gaussian draws) or add data."
+        )
+    mean, cov = predict(
+        state, x, h, xstar, hstar, full_cov=True,
+        include_nugget=include_nugget, family=family,
+    )
+    kw = dict(dtype=mean.dtype, device=mean.device)
+    z = torch.randn((n_draws, mean.shape[0]), generator=generator, **kw)
+    g = None
+    if student_t:
+        g = 2.0 * torch._standard_gamma(
+            torch.full((n_draws, 1), 0.5 * dof, **kw), generator=generator)
+    return sample_posterior_from_draws(mean, cov, dof, z, g,
+                                       student_t=student_t)
 
 
 @fp32_exact

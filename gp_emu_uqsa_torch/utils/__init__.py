@@ -1,0 +1,3 @@
+from gp_emu_uqsa_torch.utils.checkpoint import (
+    load_emulator, load_hmc_state, save_emulator, save_hmc_state,
+)

@@ -1,11 +1,14 @@
-"""Emulator checkpoints (port of the emulator half of
+"""Checkpoints of emulators and of HMC/NUTS chain state (port of
 `gp_emu_uqsa_tpu.utils.checkpoint`).
 
-Format, shared with the JAX package: a `.npz` of the data and log-space
-hyperparameters plus a `.json` sidecar of metadata. A checkpoint written
-by either package loads in the other. Loading refits the posterior state at
-the stored hyperparameters, as the JAX loader does. The HMC-state half
-comes with the samplers.
+Format, shared with the JAX package: a `.npz` of arrays plus a `.json`
+sidecar of metadata. An emulator checkpoint written by either package
+loads in the other; loading refits the posterior state at the stored
+hyperparameters, as the JAX loader does. A chain checkpoint holds the
+positions z, the step size, the inverse mass and the random state: the
+port stores `torch.Generator.get_state()` (uint8) under "key" and the
+generator's device in the metadata, so a segment rerun from it
+(`inference.hmc.mcmc_continue`) gives the same draws bit for bit.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gp_emu_uqsa_torch._device import resolve_device
 from gp_emu_uqsa_torch.kernels import params_from_numpy
 
 
@@ -94,3 +98,48 @@ def load_emulator(path, *, device=None, dtype=torch.float64):
         emul.state = gp.fit(emul.params, x, y, h, mode=meta["mode"],
                             family=family)
     return emul
+
+
+_GENERATOR_DEVICE = "generator_device"
+
+
+def save_hmc_state(path, z, step_size, inv_mass, generator, *,
+                   meta=None) -> None:
+    """Checkpoint chain state for preemption-safe resume: z (chains, dim),
+    the step size, the inverse mass and `generator`'s state."""
+    path = Path(path)
+    host = lambda t: torch.as_tensor(t).detach().cpu().numpy()
+    np.savez(
+        path.with_suffix(".npz"),
+        z=host(z),
+        step_size=host(step_size),
+        inv_mass=host(inv_mass),
+        key=generator.get_state().numpy(),
+    )
+    meta = dict(meta or {})
+    meta[_GENERATOR_DEVICE] = str(generator.device)
+    path.with_suffix(".json").write_text(json.dumps(meta))
+
+
+def load_hmc_state(path, *, device=None):
+    """(z, step_size, inv_mass, generator, meta) from `save_hmc_state`.
+
+    The tensors come back on `device` (None means the CUDA card) in their
+    saved dtype, the generator on its saved device with its saved state.
+    A file written by the JAX package's save_hmc_state loads z, step_size,
+    inv_mass and meta; its threefry key cannot seed a torch.Generator, so
+    the generator comes back as None.
+    """
+    path = Path(path)
+    dev = resolve_device(device)
+    with np.load(path.with_suffix(".npz")) as npz:
+        arrays = dict(npz)
+    meta = json.loads(path.with_suffix(".json").read_text())
+    gen_device = meta.pop(_GENERATOR_DEVICE, None)
+    generator = None
+    if gen_device is not None and arrays["key"].dtype == np.uint8:
+        generator = torch.Generator(device=gen_device)
+        generator.set_state(torch.from_numpy(arrays["key"]))
+    out = [torch.as_tensor(arrays[k], device=dev)
+           for k in ("z", "step_size", "inv_mass")]
+    return (*out, generator, meta)

@@ -100,9 +100,40 @@ each of which fails the run with a non-zero exit:
    Emulator.train_bayes -> predict_bayes at m=4096 (K2) against the same
    draws in fp64, and sample_posterior's moments against predict's; (e)
    utils.sampler_compare.compare with a tiny budget.
-7. Print the kernels JSON line (each entry with its serving, training,
-   UQSA and sampling launches), the card line, and as the last line
-   {"ok": true, "device": {...}}.
+7. The matrix-free path and the noise fit, every check collected and
+   failing the phase at its end: (a) at n=16384 (examples/matrix-free's
+   simulator and data rule, d=2, fp32), make_corr_matvec through K3 at
+   r=12 and r=8 (one launch each, against the chunked plain matvec and
+   against K3 with one segment, an exact self diagonal) and K2's
+   gradient-pass blocks against the plain build,
+   nll_and_grad_matrix_free (PCG on K3, the gradient pass on K2) against
+   gp.nll_mucm and its gradient in fp64 with tests/test_matrix_free.py's
+   bounds at nugget 1e-2, against the
+   same estimator in fp64 from the same probes at the fp32 nugget floor
+   0.25 eps32 n (4.9e-4; printed at 1e-4), fit_matrix_free ->
+   predict_mean_matrix_free against gp.fit -> gp.predict in fp64 within a
+   kappa(A) budget; (b) the example's workflow at n=131072, past the
+   dense path's memory wall (an fp32 subset MLE at n=2048 on K1, 5 Adam
+   steps of mle_fit_matrix_free at the fp32 nugget floor 0.25 eps32 n =
+   3.9e-3, not the example's 1e-4, fit_matrix_free, the mean at
+   m=65536), in a launch window of its own: the NLL trace finite,
+   every CG column at its tolerance, the fit's true residual (A in fp64)
+   within a kappa(A) eps32 budget, the mean's RMSE against the noiseless
+   simulator, the peak memory far below one dense A; then the (a) checks
+   of K3 and K2 at this n and K3 at the mean's m=65536, r=1; the Adam
+   start's fp32 gradient against the fp64 estimator from the same probes,
+   and the fp64 NLL at both ends of the steps; K3's time at r=12 and r=8,
+   CG iterations and host syncs, an evaluation split into CG, SLQ and the
+   gradient pass, the host gap of a PCG iteration; (c)
+   noisefit_arrays at n=1024, d=8, fp64 (the noise ramp recovered, each
+   end within a band of the truth; s an iteration, s and objective calls
+   an mle_fit, one data-GP evaluation's profile); (d) noisefit_arrays card
+   against CPU with the CPU run's fits replayed; (e) noisefit on a copy of
+   examples/noise-fit; (f) roofline.measure, utils.timing.timed on K1
+   against phase 2, sanitize.checked_fit, tiny measure_hmc/measure_nuts.
+8. Print the kernels JSON line (each entry with its serving, training,
+   UQSA, sampling and matrix-free launches), the card line, and as the
+   last line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -137,8 +168,10 @@ from gp_emu_uqsa_torch.basis import basis_matrix, linear_basis
 from gp_emu_uqsa_torch.configs import Beliefs
 from gp_emu_uqsa_torch.design_inputs import optLatinHyperCube
 from gp_emu_uqsa_torch.inference import hmc, lbfgs, nuts
+from gp_emu_uqsa_torch.inference import matrix_free as mf
 from gp_emu_uqsa_torch.multi import MultiEmulator
 from gp_emu_uqsa_torch.ops import _build
+from gp_emu_uqsa_torch.ops import cg as cgmod
 from gp_emu_uqsa_torch.ops import cholesky as chol
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
@@ -147,8 +180,9 @@ from gp_emu_uqsa_torch.ops.precision import fp32_exact_matmul
 from gp_emu_uqsa_torch.tools import train_linalg
 from gp_emu_uqsa_torch.tools.k4_high_variants import launches_ms, ptxas_report
 from gp_emu_uqsa_torch.tools.uqsa_forms import gram_log_rho_sum
+import gp_emu_uqsa_torch.noise_fit as nf
 import gp_emu_uqsa_torch.sensitivity as sensitivity
-from gp_emu_uqsa_torch.utils import roofline, sampler_compare
+from gp_emu_uqsa_torch.utils import roofline, sampler_compare, sanitize, timing
 from gp_emu_uqsa_torch.utils.checkpoint import load_hmc_state, save_hmc_state
 
 N_TRAIN = 16384          # training rows (BASELINE config 5)
@@ -281,6 +315,97 @@ CPU_N, CPU_CHAINS, CPU_DEPTH, CPU_RTOL, CPU_ACCEPT_ATOL = \
 # and POST_COV_MCSE for the covariance's 32,896
 PRED_M, PRED_DRAWS = 4096, 32
 POST_M, POST_DRAWS, POST_MCSE, POST_COV_MCSE = 256, 2000, 5.0, 6.0
+
+# phase 7, the matrix-free path (examples/matrix-free/run_matrix_free.py:
+# its simulator, d = 2, noise sd 0.05, seed 0, linear basis, fp32) and the
+# noise fit. (b) runs it at MF_N, past the dense path's memory wall; (a)
+# holds it against the exact path at MF_N_EXACT, where A still fits
+MF_N, MF_N_SUB, MF_M = 131072, 2048, 65536
+MF_N_EXACT, MF_M_EXACT = 16384, 4096
+MF_NOISE_SD = 0.05
+MF_STEPS = 5             # Adam steps (the example: 60)
+# L-BFGS iterations of the subset MLE (the default 200 took 57.1 s in fp32,
+# most of it linesearches of up to 20 steps near the optimum)
+MF_SUB_MAX_ITERS = 40
+# the example's learning rate; its nugget floor (1e-4) raised for fp32 to
+# MF_FLOOR_C eps32 n. Below that the fp32 estimator's log-nugget gradient
+# is wrong: the error of fp32 K3's solves, amplified by A^-1 in the
+# Hutchinson trace, grows as eps32 n / nugget. fp32 against fp64 from the
+# same probes (tools/mf_fp32_floor.py, PERF.md section 6), gradient
+# cosine: n = 131072: 0.285 at 5e-4 (0.064 eps32 n), 0.906 at 1e-3, 0.996
+# at 2e-3, 0.9999 at 4e-3; n = 65536: 0.898 at 5e-4 (0.064 eps32 n),
+# 0.9965 at 1e-3; n = 16384: 0.994 at 5e-4 (0.26 eps32 n)
+MF_FLOOR_C = 0.25
+
+
+def mf_floor(n: int) -> float:
+    """The fp32 matrix-free path's nugget floor at n rows."""
+    return MF_FLOOR_C * EPS32 * n
+
+
+MF_LR, MF_MIN_NUGGET = 0.03, mf_floor(MF_N)
+# MFConfig(num_probes=8, lanczos_k=24, cg_maxiter=500, chunk=256,
+# precond_rank=48) of the example, with CG tolerances an fp32 K3 matvec
+# reaches (the example's 1e-7 and 1e-8 are fp64's): the recursive residual
+# of every column must fall below them
+MF_CFG = dict(num_probes=8, lanczos_k=24, cg_maxiter=500, chunk=256,
+              precond_rank=48)
+MF_TRAIN_TOL, MF_FIT_TOL = 1e-5, 1e-5
+# (a) tests/test_matrix_free.py:44-55's point and bounds (delta (0.7, 0.9),
+# nugget 1e-2; NLL relative error, gradient cosine and norm ratio), with
+# 256 probes: the Hutchinson noise of the gradient does not shrink with n
+# (fp64 on the CPU at n = 8192, 64 probes read cosine 0.955 and ratio 0.79)
+MF_EXACT_DELTA, MF_EXACT_NUGGET = (0.7, 0.9), 1e-2
+MF_EXACT_CFG = dict(num_probes=256, lanczos_k=40, cg_maxiter=500, chunk=256,
+                    precond_rank=48)
+MF_NLL_RTOL, MF_COS, MF_RATIO = 0.01, 0.95, (0.6, 1.6)
+# the served mean against gp.fit -> gp.predict in fp64, relative to its
+# largest entry: MF_MEAN_C kappa(A) eps32 plus the CG residual reached (the
+# fp32 plain path read 0.0027-0.0037 kappa eps32 at n = 4096 on the CPU)
+MF_MEAN_C = 0.02
+# K3 against the chunked plain matvec: relative to (|C| |V|)_i, the sum of
+# the terms' magnitudes
+MF_MATVEC_RTOL = 2e-6
+# (b): the peak device memory under an eighth of the dense fp32 A
+MF_MEM_FRACTION = 1 / 8
+# (b): the fit's true residual |b - A x| / |b| (A applied in fp64) under
+# tol + MF_RESID_C kappa(A) eps32, kappa(A) <= lambda_max / nugget: CG's
+# true residual drifts from its recursive one by the matvec's rounding,
+# which grows with |A| |x| / |b|, about kappa(A). Readings with A in fp64
+# (tools/mf_fp32_floor.py and this phase, H100): 1.2e-4 kappa eps32 at
+# nuggets 5e-4 to 1.6e-2 (3.2e-3 to 1.0e-4; lambda_max about 1.15e5);
+# held at about 4x that
+MF_RESID_C = 5e-4
+# (b): the served mean's RMSE against the noiseless simulator. Readings
+# (tools/mf_fp32_floor.py at the subset MLE's delta, H100): 1.27e-3 at
+# nugget 4e-3, 1.59e-3 at 2e-3, 5.35e-3 at 5e-4, where the fp32 solve is
+# 8x less accurate. Held at 2.4x the reading at the floor (the data's
+# noise sd, 0.05, would pass a mean 40x worse)
+MF_RMSE = 3e-3
+# (b): the Adam steps' start and end from the fit's own probes in fp64
+# (cg_tol MF_WITNESS_TOL64), and the start's gradient from
+# MF_WITNESS_PROBES fresh probes in fp32
+MF_WITNESS_TOL64, MF_WITNESS_PROBES = 1e-8, 64
+# (c) the noise fit: chip_smoke.py::problem's inputs and signal with noise
+# sd 0.1 + 0.4 x0 (examples/noise-fit/run_noisefit.py's ramp), the
+# file-driven entry's design of olhcmult 100 x d, stopat 3, the JAX
+# defaults otherwise (tries 4, max_iters 200); fp64 on the card. n is cut
+# from 2048 to 1024: at 2048 (c) took 66.5 s (PERF.md §4)
+NF_N, NF_D, NF_DESIGN, NF_STOPAT = 1024, 8, 800, 3
+NF_RATIO = 2.5           # top-decile noise sd over bottom (test_noise_fit)
+# each end's mean sd within these factors of the truth, up or down: 1.25x
+# the readings. The estimator overestimates in 8-D in both packages: on
+# these inputs the port read 2.55x and 2.02x the truth at the bottom and
+# top deciles at n = 1024 (the card and the CPU alike); at n = 512 the
+# JAX package read 1.65x and 1.13x, the port 1.75x and 1.17x (CPU, fp64,
+# their own L-BFGS starts; PERF.md section 6)
+NF_BAND = {"bottom": 3.2, "top": 2.5}
+# (d) card against CPU from the same fits (fp64), relative to each
+# quantity's largest entry: a noise variance is est_total - latent, which
+# cancels where the two agree (one entry read 1.5e-10 of itself)
+NF_REPLAY_RTOL = 1e-10
+# (f) utils.timing.timed on K1 against phase 2's ms
+TIMED_AGREE = 0.2
 
 
 class SmokeFailure(RuntimeError):
@@ -2344,6 +2469,762 @@ def phase_bayes(dev, card):
     return launches
 
 
+# ----- phase 7: the matrix-free path and the noise fit ----------------------
+
+def mf_simulator(x):
+    """examples/matrix-free/run_matrix_free.py's simulator."""
+    return (np.sin(3 * x[:, 0]) + np.sin(2 * x[:, 1])
+            + 0.3 * x[:, 0] * x[:, 1])
+
+
+def mf_data(n, m, dev):
+    """The example's data rule (seed 0): x ~ U[0,1]^2, y = simulator +
+    0.05 N(0,1), then m queries; fp32 on dev. (x, y, h, xs, hs, the
+    noiseless simulator at xs)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(n, 2))
+    y = mf_simulator(x) + MF_NOISE_SD * rng.standard_normal(n)
+    xs = rng.uniform(size=(m, 2))
+    spec = linear_basis(2)
+    tx = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    txs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    return (tx, torch.as_tensor(y, dtype=torch.float32, device=dev),
+            basis_matrix(tx, spec), txs, basis_matrix(txs, spec),
+            mf_simulator(xs))
+
+
+class _Spans:
+    """Wraps functions of a module: host-clock seconds of their calls
+    (synchronized at both ends), call counts, and what cg_solve returned."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+
+    def __enter__(self):
+        self.seconds = {name: 0.0 for name in self.names}
+        self.calls = {name: 0 for name in self.names}
+        self.cg = []
+        self._saved = {name: getattr(self.module, name) for name in self.names}
+        for name, fn in self._saved.items():
+            def wrapped(*args, _fn=fn, _name=name, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
+                if _name == "cg_solve":
+                    self.cg.append(out[1])
+                return out
+            setattr(self.module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.module, name, fn)
+
+
+_MF_EVAL_PARTS = ("pivoted_cholesky", "woodbury_ops", "cg_solve",
+                  "slq_logdet_preconditioned_from_probes", "_grad_log_delta")
+
+
+def _cg_text(infos):
+    iters = [i["iters"] for i in infos]
+    syncs = [i["host_syncs"] for i in infos]
+    resid = max(float(i["rel_resid"].max()) for i in infos)
+    return iters, syncs, resid
+
+
+def _k3_one_segment(xq, x, delta, v):
+    """K3's C entry point forced to one segment: no (segments, m, r)
+    partial buffer and no fold of it."""
+    xs, xt = sv._scaled(xq, x, delta)
+    out = torch.zeros((xq.shape[0], v.shape[1]), dtype=torch.float32,
+                      device=xq.device)
+    _build.check(sv._launch_matvec(xs, xt, v.contiguous(), out, segments=1),
+                 sv._MATVEC_SOURCE, "corr_matvec")
+    return out
+
+
+def mf_k3_check(what, xq, x, p32, v, label, failures):
+    """K3 at the matrix-free path's call: m = xq's rows, n = x's, r = v's
+    columns. make_corr_matvec (xq is x: CG and Lanczos, with the nugget
+    shift) or corr_times (the served mean) launches K3 once; its result is
+    held against the chunked plain matvec (256-row plain builds) and
+    against K3 forced to one segment, which checks the plan's (segments,
+    m, r) partial buffer and its fold; both relative to (|C| |V|)_i."""
+    m, n, r = xq.shape[0], x.shape[0], v.shape[1]
+    # the nugget shift of make_corr_matvec, on the diagonal
+    shift = p32.nugget * v if xq is x else torch.zeros_like(v[:m])
+    reset_counters()
+    got = (cgmod.make_corr_matvec(x, p32)(v) if xq is x
+           else cgmod.corr_times(xq, x, p32, v))
+    torch.cuda.synchronize()
+    launched = sv.corr_matvec.launches
+    both = cgmod.corr_times_chunked(xq, x, p32, torch.cat([v, v.abs()], 1),
+                                    256)
+    scale = both[:, r:] + shift.abs()
+    worst = float(((got - both[:, :r] - shift).abs() / scale).max())
+    segments = sv._matvec_segments(m, n, r)
+    one = _k3_one_segment(xq, x, p32.delta, v) + shift
+    seg_err = float(((got - one).abs() / scale).max())
+    print(f"    {label}: K3 {what} at m={m}, n={n}, r={r}: {launched} launch; "
+          f"plan {segments} segments (partial buffer "
+          f"{4 * segments * m * r / 2**20:.1f} MiB); max |err| / (|C||V|)_i "
+          f"against the chunked plain matvec {worst:.3e}, against one "
+          f"segment {seg_err:.3e} (held to {MF_MATVEC_RTOL:g})")
+    if max(worst, seg_err) > MF_MATVEC_RTOL:
+        failures.append(f"{label}: K3 {what} at m={m}, r={r} off: plain "
+                        f"{worst:.3e}, one segment {seg_err:.3e}")
+    if launched != 1:
+        failures.append(f"{label}: K3 {what} launched {launched} times")
+
+
+def mf_k2_check(x, p32, label, failures):
+    """K2 at the gradient pass's blocks: 256 rows of x against all of x
+    (kernels.corr, as `_grad_log_delta` calls it), first and last block,
+    against the plain build with `check_build` (K1/K2's tolerance; whether
+    they are bit for bit is printed)."""
+    n = x.shape[0]
+    for i in (0, n - MF_CFG["chunk"]):
+        xa = x[i:i + MF_CFG["chunk"]]
+        try:
+            check_build(f"{label} K2 gaussian_corr, gradient-pass block "
+                        f"{xa.shape[0]} x {n} at row {i}, d={x.shape[1]}",
+                        kernels.corr(xa, x, p32),
+                        km.gaussian_corr_plain(xa, x, p32.delta))
+        except SmokeFailure as exc:
+            failures.append(str(exc))
+
+
+def mf_matvec_checks(x, p32, dev, failures, label):
+    """K3 through make_corr_matvec at the CG's r = 12 and the Lanczos
+    steps' r = 8 (see mf_k3_check), K2 at the gradient pass's blocks, and
+    an exact self diagonal of 1."""
+    n = x.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for r, what in ((12, "CG matvec"), (8, "Lanczos matvec")):
+        v = torch.randn((n, r), generator=gen, device=dev)
+        mf_k3_check(what, x, x, p32, v, label, failures)
+    mf_k2_check(x, p32, label, failures)
+    idx = torch.linspace(0, n - 1, 12, device=dev).long()
+    cols = torch.arange(12, device=dev)
+    unit = torch.zeros((n, 12), device=dev)
+    unit[idx, cols] = 1.0
+    diag = cgmod.corr_times(x, x, p32, unit)[idx, cols]
+    exact = bool(torch.equal(diag, torch.ones_like(diag)))
+    print(f"    {label}: c(x, x) through K3 with x on both sides: diagonal "
+          f"exactly 1 at 12 rows: {exact}; K3 plan at m=n={n}, r=12: "
+          f"{sv._matvec_segments(n, n, 12)} segments")
+    if not exact:
+        failures.append(f"{label}: K3's self diagonal is not exactly 1")
+
+
+def mf_exact_nll_grad(p64, x64, y64, h64):
+    """gp.nll_mucm and its (log delta, log nugget) gradient, fp64."""
+    leaves = [t.clone().requires_grad_(True) for t in p64]
+    val = gp.nll_mucm(kernels.GPParams(*leaves), x64, y64, h64)
+    grads = torch.autograd.grad(val, leaves)
+    return float(val.detach()), torch.cat([grads[0], grads[2][None]])
+
+
+def mf_against_exact(dev, nugget, failures, hold):
+    """nll_and_grad_matrix_free (fp32: K3, K2) against the exact fp64 NLL
+    and gradient at MF_EXACT_DELTA and `nugget`; beside it the same
+    estimator in fp64 (the plain path) from the same probes, which
+    separates the probes' noise from fp32's rounding. `hold`: "exact"
+    holds fp32 against the exact, "estimator" against the fp64 estimator
+    (the bounds of MF_NLL_RTOL, MF_COS and MF_RATIO), None prints."""
+    x, y, h, _, _, _ = mf_data(MF_N_EXACT, MF_M_EXACT, dev)
+    p32 = params_from_numpy(np.log(MF_EXACT_DELTA), 0.0, np.log(nugget),
+                            device=dev, dtype=torch.float32)
+    p64 = params_from_numpy(np.log(MF_EXACT_DELTA), 0.0, np.log(nugget),
+                            device=dev, dtype=torch.float64)
+    val, ge = mf_exact_nll_grad(p64, x.double(), y.double(), h.double())
+    cfg = mf.MFConfig(cg_tol=MF_TRAIN_TOL, **MF_EXACT_CFG)
+    probes = mf.matrix_free_probes(torch.Generator(device=dev).manual_seed(1),
+                                   MF_N_EXACT, cfg, torch.float32)
+    out = {}
+    for name, p, dt in (("fp32", p32, torch.float32),
+                        ("fp64", p64, torch.float64)):
+        t0 = time.perf_counter()
+        nll, g, aux = mf.nll_and_grad_from_probes(
+            p, x.to(dt), y.to(dt), h.to(dt),
+            tuple(t.to(dt) for t in probes),
+            dataclasses.replace(cfg, cg_tol=MF_TRAIN_TOL if dt == torch.float32
+                                else 1e-10))
+        torch.cuda.synchronize()
+        gm = torch.cat([g.log_delta, g.log_nugget[None]]).double()
+        out[name] = (abs(float(nll) - val) / abs(val),
+                     float(gm @ ge / (gm.norm() * ge.norm())),
+                     float(gm.norm() / ge.norm()), gm.tolist(),
+                     aux["cg_info"]["iters"],
+                     float(aux["cg_info"]["rel_resid"].max()),
+                     time.perf_counter() - t0, float(nll))
+    print(f"    nugget {nugget:g}, exact NLL {val:.4f}, gradient "
+          f"{ge.tolist()}" + ("" if hold == "exact"
+                               else " (against it: a finding, not held)"))
+    for name, (r, c, q, gm, it, res, t, _) in out.items():
+        print(f"      {name}: NLL rel err {r:.3e}; gradient {gm}: cosine "
+              f"{c:.4f}, norm ratio {q:.3f}; PCG {it} iterations (rel resid "
+              f"{res:.2e}); {t:.2f} s")
+    if hold == "exact":
+        rel, cos, ratio = out["fp32"][:3]
+    else:
+        # fp32 against the fp64 estimator from the same probes: fp32's
+        # rounding alone, held to the same bounds
+        g32, g64 = (torch.tensor(out[k][3], dtype=torch.float64)
+                    for k in ("fp32", "fp64"))
+        rel = abs(out["fp32"][7] - out["fp64"][7]) / abs(out["fp64"][7])
+        cos = float(g32 @ g64 / (g32.norm() * g64.norm()))
+        ratio = float(g32.norm() / g64.norm())
+        print(f"      fp32 against fp64 from the same probes: NLL rel diff "
+              f"{rel:.3e}, gradient cosine {cos:.4f}, norm ratio {ratio:.3f}"
+              + (" (held)" if hold else ""))
+    ok = rel < MF_NLL_RTOL and cos > MF_COS and MF_RATIO[0] < ratio < MF_RATIO[1]
+    if hold and not ok:
+        failures.append(f"(a) matrix-free NLL/gradient at nugget {nugget:g} "
+                        f"off the {hold}: rel {rel:.3e}, cos {cos:.4f}, "
+                        f"ratio {ratio:.3f}")
+
+
+def mf_exact(dev, card, failures):
+    """(a) at n = MF_N_EXACT, where the exact path still fits: K3's matvec,
+    the NLL and gradient, and the served mean against fp64 exact."""
+    print(f"  (a) matrix-free against exact at n={MF_N_EXACT}, d=2, fp32 "
+          f"({card})")
+    x, y, h, xs, hs, _ = mf_data(MF_N_EXACT, MF_M_EXACT, dev)
+    p32 = params_from_numpy(np.log(MF_EXACT_DELTA), 0.0,
+                            np.log(MF_EXACT_NUGGET), device=dev,
+                            dtype=torch.float32)
+    mf_matvec_checks(x, p32, dev, failures, "(a)")
+    print(f"    nll_and_grad_matrix_free at delta {MF_EXACT_DELTA}, "
+          f"{MF_EXACT_CFG['num_probes']} probes, against gp.nll_mucm in "
+          f"fp64, fp32 held to rel < {MF_NLL_RTOL}, cosine > {MF_COS}, ratio "
+          f"in {MF_RATIO}:")
+    mf_against_exact(dev, MF_EXACT_NUGGET, failures, hold="exact")
+    mf_against_exact(dev, mf_floor(MF_N_EXACT), failures, hold="estimator")
+    mf_against_exact(dev, 1e-4, failures, hold=None)
+
+    ff = cgmod.fit_matrix_free(p32, x, y, h, chunk=MF_CFG["chunk"],
+                               tol=MF_FIT_TOL, maxiter=1000,
+                               precond_rank=MF_CFG["precond_rank"])
+    mean = cgmod.predict_mean_matrix_free(ff, x, xs, hs, p32)
+    p64 = params_from_numpy(np.log(MF_EXACT_DELTA), 0.0,
+                            np.log(MF_EXACT_NUGGET), device=dev,
+                            dtype=torch.float64)
+    x64, y64, h64 = x.double(), y.double(), h.double()
+    st = gp.fit(p64, x64, y64, h64)
+    m64, _ = gp.predict(st, x64, h64, xs.double(), hs.double())
+    kappa = float(kappa_fp64(kernels.corr_self(x64, p64)))
+    resid = float(ff["info"]["rel_resid"].max())
+    budget = MF_MEAN_C * kappa * EPS32 + resid
+    err = float((mean.double() - m64).abs().max() / m64.abs().max())
+    print(f"    fit_matrix_free -> predict_mean_matrix_free at m={MF_M_EXACT} "
+          f"against gp.fit -> gp.predict in fp64: max err / max |mean| "
+          f"{err:.3e}, budget {MF_MEAN_C} kappa eps32 + rel resid = "
+          f"{budget:.3e} (kappa(A) {kappa:.3e}; PCG {ff['info']['iters']} "
+          f"iterations, rel resid {resid:.2e})")
+    if not (err <= budget and bool(torch.isfinite(mean).all())):
+        failures.append(f"(a) matrix-free mean off the exact: {err:.3e} > "
+                        f"{budget:.3e}")
+
+
+def mf_k3_costs(x, p, dev, card):
+    """K3 at r = 12 (a CG iteration) and r = 8 (a Lanczos step) at m = n,
+    and the card's busy time and the host gap of PCG iterations."""
+    n = x.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for r in (12, 8):
+        v = torch.randn((n, r), generator=gen, device=dev)
+        out[r], _ = time_ms(lambda: cgmod.corr_times(x, x, p, v), reps=5)
+    pre = cgmod.pivoted_chol_precond(x, p, MF_CFG["precond_rank"])
+    mv = cgmod.make_corr_matvec(x, p)
+    b = torch.randn((n, 12), generator=gen, device=dev)
+    k = 10
+    wall = {it: wall_ms(lambda it=it: cgmod.cg_solve(mv, b, tol=0.0,
+                                                      maxiter=it, precond=pre))
+            for it in (0, k)}
+    busy = {it: device_profile(lambda it=it: cgmod.cg_solve(
+        mv, b, tol=0.0, maxiter=it, precond=pre))[0] for it in (0, k)}
+    it_wall = (wall[k] - wall[0]) / k
+    text = (f"    K3 at m=n={n}: r=12 {out[12]:.3f} ms, r=8 {out[8]:.3f} ms "
+            f"(wrapper, CUDA events, median of 5; {card}); one PCG "
+            f"iteration (r=12) {it_wall:.3f} ms on the host clock")
+    if busy[0] is not None:
+        it_busy = (busy[k] - busy[0]) / k
+        text += (f", card busy {it_busy:.3f} ms, host gap "
+                 f"{it_wall - it_busy:.3f} ms")
+    print(text)
+    return out
+
+
+def _rel_resid(matvec, b, x) -> float:
+    """max over columns of |b - A x| / |b|."""
+    return float((torch.linalg.vector_norm(b - matvec(x), dim=0)
+                  / torch.linalg.vector_norm(b, dim=0)).max())
+
+
+def _lambda_max(matvec, n, dev, iters: int = 20) -> float:
+    """The largest eigenvalue of A by power iteration from the ones vector
+    (A's dominant eigenvector is near it: every entry of C is positive)."""
+    v = torch.full((n,), n ** -0.5, device=dev)
+    lam = 0.0
+    for _ in range(iters):
+        w = matvec(v)
+        lam = float(v @ w)
+        v = w / torch.linalg.vector_norm(w)
+    return lam
+
+
+def _mf_eval(p, x, y, h, probes, cfg, dt):
+    """nll_and_grad_from_probes in dtype dt: (NLL, (log delta, log
+    nugget) gradient in fp64 on the host, PCG iterations, seconds)."""
+    t0 = time.perf_counter()
+    nll, g, aux = mf.nll_and_grad_from_probes(
+        kernels.GPParams(*(t.to(dt) for t in p)), x.to(dt), y.to(dt),
+        h.to(dt), tuple(t.to(dt) for t in probes), cfg)
+    torch.cuda.synchronize()
+    return (float(nll), torch.cat([g.log_delta, g.log_nugget[None]]).double()
+            .cpu(), aux["cg_info"]["iters"], time.perf_counter() - t0)
+
+
+def mf_adam_witness(x, y, h, p0, p, cfg, dev, failures):
+    """The Adam steps' start (the subset MLE projected onto the nugget
+    floor, as mle_fit_from_probes does) and end, evaluated from the fit's
+    own probes by the fp64 estimator (the plain path): the fp32 gradient
+    at the start held against fp64's with (a)'s bounds; the fp64 NLL at
+    both ends (held: the steps lower it) beside the first-order change its
+    start gradient predicts; and, a finding, the fp32 gradient at the
+    start from MF_WITNESS_PROBES fresh probes, which shows the 8-probe
+    estimate's noise."""
+    n = x.shape[0]
+    probes = mf.matrix_free_probes(torch.Generator(device=dev).manual_seed(1),
+                                   n, cfg, torch.float32)
+    start = kernels.GPParams(p0.log_delta, p0.log_sigma2, torch.clamp(
+        p0.log_nugget, min=math.log(MF_MIN_NUGGET)))
+    cfg64 = dataclasses.replace(cfg, cg_tol=MF_WITNESS_TOL64)
+    r32 = _mf_eval(start, x, y, h, probes, cfg, torch.float32)
+    r64 = _mf_eval(start, x, y, h, probes, cfg64, torch.float64)
+    e64 = _mf_eval(p, x, y, h, probes, cfg64, torch.float64)
+    wide_cfg = dataclasses.replace(cfg, num_probes=MF_WITNESS_PROBES)
+    wide = _mf_eval(start, x, y, h, mf.matrix_free_probes(
+        torch.Generator(device=dev).manual_seed(2), n, wide_cfg,
+        torch.float32), wide_cfg, torch.float32)
+    g32, g64 = r32[1], r64[1]
+    cos = float(g32 @ g64 / (g32.norm() * g64.norm()))
+    ratio = float(g32.norm() / g64.norm())
+    rel = abs(r32[0] - r64[0]) / abs(r64[0])
+    step = torch.cat([p.log_delta - start.log_delta,
+                      (p.log_nugget - start.log_nugget)[None]]).double().cpu()
+    gw = wide[1]
+    print(f"    the Adam steps from the fit's own probes, fp32 against the "
+          f"fp64 estimator (plain path, cg_tol {MF_WITNESS_TOL64:g}) at the "
+          f"start: NLL {r32[0]:.3f} / {r64[0]:.3f} (rel diff {rel:.3e}); "
+          f"gradient {g32.tolist()} / {g64.tolist()}: cosine {cos:.4f}, "
+          f"norm ratio {ratio:.3f} (held to (a)'s bounds); PCG "
+          f"{r32[2]} / {r64[2]} iterations; {r32[3]:.2f} / {r64[3]:.2f} s")
+    print(f"    fp64 NLL at the start {r64[0]:.3f}, at the end {e64[0]:.3f} "
+          f"(change {e64[0] - r64[0]:+.3f}; the start gradient predicts "
+          f"{float(g64 @ step):+.3f} to first order along the step "
+          f"{step.tolist()}); {e64[3]:.2f} s")
+    print(f"    finding: the fp32 gradient at the start from "
+          f"{MF_WITNESS_PROBES} fresh probes {gw.tolist()}: cosine "
+          f"{float(gw @ g64 / (gw.norm() * g64.norm())):.4f} with the "
+          f"8-probe fp64 gradient, norm ratio {float(gw.norm() / g64.norm()):.3f}"
+          f"; NLL {wide[0]:.3f}; {wide[3]:.2f} s")
+    if not (rel < MF_NLL_RTOL and cos > MF_COS
+            and MF_RATIO[0] < ratio < MF_RATIO[1]):
+        failures.append(f"(b) fp32 gradient at the Adam start off the fp64 "
+                        f"estimator: rel {rel:.3e}, cos {cos:.4f}, ratio "
+                        f"{ratio:.3f}")
+    if not e64[0] < r64[0]:
+        failures.append(f"(b) the Adam steps raised the fp64 NLL: "
+                        f"{r64[0]:.3f} -> {e64[0]:.3f}")
+
+
+def mf_full_width(dev, card, failures):
+    """(b) the example's workflow at n = MF_N, fp32, in a launch window."""
+    n = MF_N
+    total = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    dense = 4.0 * n * n / 2**30
+    print(f"  (b) matrix-free workflow at n={n}, d=2, fp32: the dense A alone "
+          f"would take {dense:.0f} GiB, its Cholesky factor as much again; "
+          f"the card has {total:.1f} GiB ({card})")
+    x, y, h, xs, hs, truth = mf_data(n, MF_M, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    parts = {}
+    t0 = time.perf_counter()
+    p0, info0 = lbfgs.mle_fit(
+        torch.Generator().manual_seed(0), x[:MF_N_SUB], y[:MF_N_SUB],
+        h[:MF_N_SUB], lbfgs.MLEConfig(mode="mucm", tries=4, train_nugget=True,
+                                      nugget_bounds=(1e-6, 1.0),
+                                      max_iters=MF_SUB_MAX_ITERS))
+    torch.cuda.synchronize()
+    parts["subset MLE"] = time.perf_counter() - t0
+    cfg = mf.MFConfig(cg_tol=MF_TRAIN_TOL, **MF_CFG)
+    with _Spans(mf, _MF_EVAL_PARTS) as spans:
+        p, info = mf.mle_fit_matrix_free(
+            torch.Generator(device=dev).manual_seed(1), x, y, h,
+            steps=MF_STEPS, learning_rate=MF_LR, min_nugget=MF_MIN_NUGGET,
+            init=p0, cfg=cfg)
+        trace = info["nll_trace"].tolist()
+    parts["Adam"] = time.perf_counter() - t0 - sum(parts.values())
+    with _Spans(cgmod, ("cg_solve", "pivoted_chol_precond")) as fit_spans:
+        ff = cgmod.fit_matrix_free(p, x, y, h, chunk=MF_CFG["chunk"],
+                                   tol=MF_FIT_TOL, maxiter=1000,
+                                   precond_rank=MF_CFG["precond_rank"])
+    parts["fit"] = time.perf_counter() - t0 - sum(parts.values())
+    mean = cgmod.predict_mean_matrix_free(ff, x, xs, hs, p)
+    torch.cuda.synchronize()
+    parts["predict"] = time.perf_counter() - t0 - sum(parts.values())
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    rmse = float(np.sqrt(np.mean((mean.double().cpu().numpy() - truth) ** 2)))
+    iters, syncs, resid = _cg_text(spans.cg)
+    f_iters, f_syncs, f_resid = _cg_text(fit_spans.cg)
+    rhs = torch.cat([y[:, None], h], dim=1)
+    sol = torch.cat([(ff["e"] + ff["ainv_h"] @ ff["beta"])[:, None],
+                     ff["ainv_h"]], dim=1)
+    mv = cgmod.make_corr_matvec(x, p)
+    k3_resid = _rel_resid(mv, rhs, sol)
+    # the true residual with A applied in fp64 by the plain chunked build,
+    # out of reach of K3's rounding; its budget from kappa(A) <=
+    # lambda_max / nugget (C is positive semi-definite)
+    p64 = kernels.GPParams(*(t.double() for t in p))
+    true_resid = _rel_resid(
+        cgmod.make_corr_matvec(x.double(), p64, chunk=MF_CFG["chunk"]),
+        rhs.double(), sol.double())
+    kappa = _lambda_max(mv, n, dev) / float(p.nugget)
+    resid_budget = MF_FIT_TOL + MF_RESID_C * kappa * EPS32
+    per = {k: v / MF_STEPS for k, v in spans.seconds.items()}
+    print(f"    subset MLE at n={MF_N_SUB} (K1, 4 restarts, at most "
+          f"{MF_SUB_MAX_ITERS} iterations): "
+          f"{parts['subset MLE']:.2f} s, {info0['iters'].tolist()} iterations"
+          f"; delta {p0.delta.tolist()}, nugget {float(p0.nugget):.3e}")
+    print(f"    {MF_STEPS} Adam steps (mle_fit_matrix_free, {cfg}): "
+          f"{parts['Adam']:.2f} s, {parts['Adam'] / MF_STEPS:.2f} s a step; "
+          f"NLL trace {trace}; delta {p.delta.tolist()}, nugget "
+          f"{float(p.nugget):.3e}")
+    print(f"    an evaluation, s (host clock, synchronized): CG "
+          f"{per['cg_solve']:.3f}, SLQ "
+          f"{per['slq_logdet_preconditioned_from_probes']:.3f}, gradient "
+          f"pass {per['_grad_log_delta']:.3f}, pivoted Cholesky "
+          f"{per['pivoted_cholesky']:.3f}, Woodbury setup "
+          f"{per['woodbury_ops']:.3f}")
+    print(f"    PCG a solve: iterations {iters}, host syncs {syncs}; largest "
+          f"rel resid {resid:.2e} (tol {MF_TRAIN_TOL:g})")
+    print(f"    fit_matrix_free: {parts['fit']:.2f} s, PCG {f_iters} "
+          f"iterations, {f_syncs} host syncs, recursive rel resid "
+          f"{f_resid:.2e} (tol {MF_FIT_TOL:g}); true relative residual "
+          f"|b - A x| / |b| with A in fp64 (plain) {true_resid:.3e}, held to "
+          f"tol + {MF_RESID_C:g} kappa(A) eps32 = {resid_budget:.3e} "
+          f"(kappa(A) <= {kappa:.3e}); with A through K3 {k3_resid:.3e}. "
+          f"So the fp32 solve reaches about {true_resid:.0e}, not its "
+          f"recursive {f_resid:.0e}; beta {ff['beta'].tolist()}")
+    print(f"    predict_mean_matrix_free at m={MF_M}: {parts['predict']:.3f} "
+          f"s; RMSE against the noiseless simulator {rmse:.4e} (< "
+          f"{MF_RMSE:g}); peak allocated {peak:.2f} GiB (< "
+          f"{MF_MEM_FRACTION * dense:.0f} GiB, {MF_MEM_FRACTION:g} of the "
+          f"dense A)")
+    print(f"    launches in (b): {launches} (K1 the subset MLE, K2 the "
+          f"gradient passes, {n // MF_CFG['chunk']} an evaluation, K3 the "
+          f"CG and Lanczos loops and the prediction)")
+    if not all(math.isfinite(v) for v in trace):
+        failures.append(f"(b) NLL trace not finite: {trace}")
+    if resid > MF_TRAIN_TOL or f_resid > MF_FIT_TOL:
+        failures.append(f"(b) CG columns off their tolerance: {resid:.2e}, "
+                        f"{f_resid:.2e}")
+    if not true_resid <= resid_budget:
+        failures.append(f"(b) fit's true residual {true_resid:.3e} > "
+                        f"{resid_budget:.3e}")
+    if not (rmse < MF_RMSE and bool(torch.isfinite(mean).all())):
+        failures.append(f"(b) served mean RMSE {rmse:.4e}")
+    if peak > MF_MEM_FRACTION * dense:
+        failures.append(f"(b) peak memory {peak:.2f} GiB")
+    if min(launches["K1"], launches["K2"], launches["K3"]) <= 0:
+        failures.append(f"(b) K1, K2 and K3 must launch: {launches}")
+    mf_matvec_checks(x, p, dev, failures, "(b)")
+    mf_k3_check("served mean", xs, x, p, ff["e"][:, None], "(b)", failures)
+    mf_adam_witness(x, y, h, p0, p, cfg, dev, failures)
+    mf_k3_costs(x, p, dev, card)
+    # a finding, not held: PCG at the subset MLE's own nugget, below the
+    # fp32 floor MF_MIN_NUGGET
+    t1 = time.perf_counter()
+    low = cgmod.fit_matrix_free(p0, x, y, h, chunk=MF_CFG["chunk"],
+                                tol=MF_FIT_TOL, maxiter=100,
+                                precond_rank=MF_CFG["precond_rank"])
+    torch.cuda.synchronize()
+    print(f"    finding: fit_matrix_free at the subset MLE's nugget "
+          f"{float(p0.nugget):.3e}: PCG {low['info']['iters']} iterations "
+          f"(at most 100), rel resid "
+          f"{float(low['info']['rel_resid'].max()):.3e}, "
+          f"{time.perf_counter() - t1:.2f} s")
+    return launches
+
+
+def nf_problem(n, d):
+    """chip_smoke.py::problem's inputs and signal, with noise sd
+    0.1 + 0.4 x0 (examples/noise-fit/run_noisefit.py's ramp) drawn from
+    seed 1; fp64."""
+    x, y = problem(n, d)
+    x = x.astype(np.float64)
+    sd = 0.1 + 0.4 * x[:, 0]
+    rng = np.random.default_rng(1)
+    return x, y.astype(np.float64) + sd * rng.standard_normal(n), sd
+
+
+class _FitLog(_NllCalls):
+    """Wraps noise_fit's mle_fit: seconds and objective calls a fit."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.runs = []
+        self._fit = nf.mle_fit
+
+        def fit(*args, **kwargs):
+            calls0 = self.calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._fit(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.runs.append((time.perf_counter() - t0, self.calls - calls0,
+                              int(out[1]["iters"].max())))
+            return out
+
+        nf.mle_fit = fit
+        return self
+
+    def __exit__(self, *exc):
+        nf.mle_fit = self._fit
+        super().__exit__(*exc)
+
+
+def nf_full_width(dev, card, failures):
+    """(c) noisefit_arrays at n = NF_N, d = NF_D, fp64 on the card."""
+    x, y, sd = nf_problem(NF_N, NF_D)
+    print(f"  (c) noisefit_arrays at n={NF_N}, d={NF_D}, noise sd 0.1 + 0.4 "
+          f"x0, design_size {NF_DESIGN}, stopat {NF_STOPAT}, fp64 (cuSOLVER, "
+          f"cuBLAS and the plain fp64 build: no kernel) ({card})")
+    stamps = []
+    t0 = time.perf_counter()
+    with _FitLog() as log:
+        res = nf.noisefit_arrays(
+            x, y, stopat=NF_STOPAT, design_size=NF_DESIGN, device=dev,
+            iter_callback=lambda it, v: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    its = np.diff([t0] + stamps).tolist()
+    print(f"    {total:.1f} s: iterations {[round(v, 2) for v in its]} s; "
+          f"history {res.history}")
+    print(f"    mle_fit calls (s, objective calls, iterations): "
+          f"{[(round(s, 2), c, i) for s, c, i in log.runs]}")
+    est = np.sqrt(res.noise_at_train)
+    lo = x[:, 0] <= np.quantile(x[:, 0], 0.1)
+    hi = x[:, 0] >= np.quantile(x[:, 0], 0.9)
+    e_lo, e_hi = float(est[lo].mean()), float(est[hi].mean())
+    t_lo, t_hi = float(sd[lo].mean()), float(sd[hi].mean())
+    print(f"    recovered noise sd, bottom decile of x0 {e_lo:.4f} (true "
+          f"{t_lo:.4f}, held within x/÷ {NF_BAND['bottom']}), top decile "
+          f"{e_hi:.4f} (true {t_hi:.4f}, x/÷ {NF_BAND['top']}); ratio "
+          f"{e_hi / e_lo:.2f} (> {NF_RATIO})")
+    if not (np.all(np.isfinite(res.noise_at_train))
+            and np.all(res.noise_at_train > 0)):
+        failures.append("(c) noise_at_train not finite and positive")
+    if not e_hi > NF_RATIO * e_lo:
+        failures.append(f"(c) noise ramp not recovered: {e_lo}, {e_hi}")
+    for e, t, band in ((e_lo, t_lo, NF_BAND["bottom"]),
+                       (e_hi, t_hi, NF_BAND["top"])):
+        if not t / band <= e <= t * band:
+            failures.append(f"(c) noise sd {e:.4f} outside the band around "
+                            f"{t:.4f}")
+    # one data-GP evaluation (gp4ml, 4 restarts, the final noise) profiled
+    cfg = lbfgs.MLEConfig(mode="gp4ml", tries=4, train_nugget=True,
+                          nugget_bounds=(1e-8, 10.0))
+    xt = torch.as_tensor(x, device=dev)
+    ht = basis_matrix(xt, linear_basis(NF_D))
+    lo_b, hi_b = lbfgs._default_bounds(cfg, NF_D)
+    noise = torch.as_tensor(res.noise_at_train / float(res.data_state.sigma2),
+                            device=dev)
+    objective, _, from_logspace = lbfgs._make_objective(
+        xt, torch.as_tensor(y, device=dev), ht, cfg, lo_b, hi_b, noise)
+    u = from_logspace(lbfgs._lhc_starts(torch.Generator().manual_seed(0), 4,
+                                        lo_b, hi_b, torch.float64).to(dev))
+    evaluation_breakdown(f"(c) data GP, gp4ml value and gradient, 4 restarts "
+                         f"x n={NF_N}, fp64", objective, u, card)
+    return total
+
+
+def nf_replay(dev, failures):
+    """(d) noisefit_arrays at n = 200, d = 1, stopat 2 on the CPU, then on
+    the card with the CPU run's fits replayed through the mle_fit seam."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0.0, 1.0, 200)
+    y = 2.0 * np.sin(2 * np.pi * x) + (0.1 + 0.4 * x) * rng.standard_normal(200)
+    real = nf.mle_fit
+    fits, seen = [], {"cpu": [], "card": []}
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        fits.append(out)
+        return out
+
+    def replay(*args, **kwargs):
+        params, info = fits[len(seen["replayed"])]
+        seen["replayed"].append(1)
+        return kernels.GPParams(*(t.to(dev) for t in params)), info
+
+    grid = np.linspace(0.0, 1.0, 41)
+    seen["replayed"] = []
+    try:
+        nf.mle_fit = record
+        cres = nf.noisefit_arrays(x, y, stopat=2, device="cpu",
+                                  iter_callback=lambda it, v: seen["cpu"].append(v))
+        nf.mle_fit = replay
+        gres = nf.noisefit_arrays(x, y, stopat=2, device=dev,
+                                  iter_callback=lambda it, v: seen["card"].append(v))
+    finally:
+        nf.mle_fit = real
+    def rel(g, c):
+        g, c = np.asarray(g), np.asarray(c)
+        return float(np.max(np.abs(g - c)) / np.max(np.abs(c)))
+
+    errs = {"noise variances": max(rel(g, c) for g, c in
+                                   zip(seen["card"], seen["cpu"])),
+            "history": rel(gres.history, cres.history),
+            "predict_noise": rel(nf.predict_noise(gres, grid),
+                                 nf.predict_noise(cres, grid))}
+    # the conditioning the fits' solves amplify rounding by
+    d = cres.data_params
+    a = kernels.corr_self(torch.as_tensor(x[:, None], device=dev),
+                          kernels.GPParams(*(t.to(dev) for t in d)))
+    a = a + torch.diag(torch.as_tensor(
+        cres.noise_at_train / float(cres.data_state.sigma2), device=dev))
+    kappa = float(kappa_fp64(a))
+    worst = max(errs.values())
+    ok = (len(seen["card"]) == len(seen["cpu"]) == 2
+          and len(seen["replayed"]) == len(fits) == 5 and worst <= NF_REPLAY_RTOL)
+    print(f"  (d) noisefit_arrays card against CPU from the same {len(fits)} "
+          f"fits (n=200, d=1, fp64, stopat 2): worst differences relative "
+          f"to each quantity's largest entry "
+          f"{json.dumps(errs)} (held to {NF_REPLAY_RTOL:g}); kappa of the "
+          f"final data GP's A {kappa:.3e}")
+    if not ok:
+        failures.append(f"(d) card off the CPU: {worst:.3e}")
+
+
+def nf_files(dev, failures):
+    """(e) noisefit on a copy of examples/noise-fit in a temporary
+    directory: the -noise-it<k>, -noise and -f files."""
+    src = Path(__file__).resolve().parent / "examples" / "noise-fit"
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp) / "noise-fit"
+        shutil.copytree(src, work)
+        t0 = time.perf_counter()
+        res = nf.noisefit(work / "noisefit_data_config",
+                          work / "noisefit_noise_config", stopat=3, device=dev)
+        t = time.perf_counter() - t0
+        names = sorted(p.name for p in work.iterdir()
+                       if "-noise" in p.name or p.name.endswith("-f"))
+        want = ([f"noisefit_output-noise-it{k}"
+                 for k in range(len(res.history) + 1)]
+                + ["noisefit_output-noise", "noisefit_data_beliefs-f",
+                   "noisefit_noise_beliefs-f"])
+        noise = (np.loadtxt(work / "noisefit_output-noise")
+                 if (work / "noisefit_output-noise").exists() else None)
+    print(f"  (e) noisefit(stopat=3) on examples/noise-fit: {t:.1f} s, wrote "
+          f"{names}; -noise positive: "
+          f"{noise is not None and bool(np.all(noise > 0))}")
+    if not set(want) <= set(names):
+        failures.append(f"(e) missing files: {sorted(set(want) - set(names))}")
+    if noise is None or not np.all(noise > 0):
+        failures.append("(e) -noise not positive")
+
+
+def utilities(dev, card, k1_ms, failures):
+    """(f) roofline.measure, utils.timing.timed on K1, checked_fit, and
+    tiny measure_hmc / measure_nuts runs."""
+    res = roofline.measure(n=4096, device=dev)
+    print(f"  (f) roofline.measure(n=4096) on {res['device']} ({card}):")
+    for op, entry in res.items():
+        if isinstance(entry, dict):
+            print(f"    {op}: {json.dumps(entry)}")
+    x_np, _ = problem(N_TRAIN)
+    x = torch.as_tensor(x_np, device=dev)
+    delta = torch.full((DIM,), DELTA, dtype=torch.float32, device=dev)
+    nugget = torch.tensor(NUGGET, dtype=torch.float32, device=dev)
+    out = torch.empty((N_TRAIN, N_TRAIN), dtype=torch.float32, device=dev)
+    if k1_ms is None:
+        k1_ms = launches_ms(self_entry(x, delta, nugget, out))
+    t = 1e3 * timing.timed(
+        lambda: km.gaussian_corr_self_fused(x, delta, nugget, out=out),
+        lambda o: torch.cuda.synchronize())
+    off = abs(t - k1_ms) / k1_ms
+    print(f"    utils.timing.timed on K1 at n={N_TRAIN}: {t:.4f} ms against "
+          f"phase 2's {k1_ms:.4f} ms ({100 * off:.1f}% apart, held to "
+          f"{100 * TIMED_AGREE:.0f}%)")
+    if off > TIMED_AGREE:
+        failures.append(f"(f) timing.timed on K1 {t:.4f} against {k1_ms:.4f}")
+    del out
+    xf, yf = problem(N_FIT)
+    xt = torch.as_tensor(xf, device=dev)
+    yt = torch.as_tensor(yf, device=dev)
+    ht = basis_matrix(xt, linear_basis(DIM))
+    p = params_from_numpy(np.log(np.full(DIM, DELTA)), 0.0, np.log(NUGGET),
+                          device=dev, dtype=torch.float32)
+    err, state = sanitize.checked_fit(p, xt, yt, ht)
+    bad = kernels.GPParams(p.log_delta.clone(), p.log_sigma2, p.log_nugget)
+    bad.log_delta[0] = float("nan")
+    err_bad, _ = sanitize.checked_fit(bad, xt, yt, ht)
+    print(f"    sanitize.checked_fit at n={N_FIT}, fp32: clean fit -> "
+          f"{err.get()!r} (NLL {float(state.nll):.3f}); NaN log delta -> "
+          f"{err_bad.get()!r}")
+    if err.get() is not None:
+        failures.append(f"(f) checked_fit flags a clean fit: {err.get()}")
+    if err_bad.get() is None or "kernel matrix" not in err_bad.get():
+        failures.append(f"(f) checked_fit names {err_bad.get()!r} for a NaN "
+                        "log delta")
+    small = dict(n_chains=8, n=128, d=4, device=dev)
+    print(f"    roofline.measure_hmc (tiny): {json.dumps(roofline.measure_hmc(n_samples=8, n_warmup=8, n_leapfrog=4, **small))}")
+    print(f"    roofline.measure_nuts (tiny): {json.dumps(roofline.measure_nuts(n_warmup=8, segment_draws=4, n_segments=2, max_depth=4, **small))}")
+
+
+def phase_matrix_free(dev, card, k1_ms=None):
+    """Phase 7: the matrix-free path and the noise fit. Every check is
+    collected and the phase fails at its end if any failed. Returns (b)'s
+    launch window."""
+    print(f"[phase 7] matrix-free path and noise fit ({card})")
+    failures = []
+    t0 = time.perf_counter()
+    parts = {}
+    mf_exact(dev, card, failures)
+    parts["(a)"] = time.perf_counter()
+    launches = mf_full_width(dev, card, failures)
+    parts["(b)"] = time.perf_counter()
+    nf_full_width(dev, card, failures)
+    parts["(c)"] = time.perf_counter()
+    nf_replay(dev, failures)
+    parts["(d)"] = time.perf_counter()
+    nf_files(dev, failures)
+    parts["(e)"] = time.perf_counter()
+    utilities(dev, card, k1_ms, failures)
+    parts["(f)"] = time.perf_counter()
+    t = t0
+    spans = []
+    for name, end in parts.items():
+        spans.append(f"{name} {end - t:.1f} s")
+        t = end
+    print(f"  phase 7 took {time.perf_counter() - t0:.1f} s on the host "
+          f"clock: {', '.join(spans)}")
+    if failures:
+        raise SmokeFailure("phase 7: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2386,6 +3267,7 @@ def main() -> int:
     launches_train = phase_train(dev, card)
     launches_uqsa = phase_uqsa(dev, card)
     launches_bayes = phase_bayes(dev, card)
+    launches_mf = phase_matrix_free(dev, card, k1_ms=rows["K1"][1])
 
     where = {
         "K1": ("gaussian_corr_self", "gp_emu_uqsa_torch/csrc/corr_build.cu",
@@ -2409,6 +3291,8 @@ def main() -> int:
                      "K4 highest": launches_uqsa["K4"]}
     launches_bayes = {**launches_bayes, "K4 high": launches_bayes["K4"],
                       "K4 highest": launches_bayes["K4"]}
+    launches_mf = {**launches_mf, "K4 high": launches_mf["K4"],
+                   "K4 highest": launches_mf["K4"]}
     entries = []
     for key, (name, source, replaces) in where.items():
         err, t, t_wrap, tp, (b, by), lib = rows[key]
@@ -2417,6 +3301,7 @@ def main() -> int:
                         "training_launches": launches_train[key],
                         "uqsa_launches": launches_uqsa[key],
                         "sampling_launches": launches_bayes[key],
+                        "matrix_free_launches": launches_mf[key],
                         "max_abs_err": err, "ms": t, "wrapper_ms": t_wrap,
                         "plain_ms": tp, "bound_ms": b, "bound_by": by,
                         "library_ms": lib})

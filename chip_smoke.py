@@ -131,9 +131,31 @@ each of which fails the run with a non-zero exit:
    against CPU with the CPU run's fits replayed; (e) noisefit on a copy of
    examples/noise-fit; (f) roofline.measure, utils.timing.timed on K1
    against phase 2, sanitize.checked_fit, tiny measure_hmc/measure_nuts.
-8. Print the kernels JSON line (each entry with its serving, training,
-   UQSA, sampling and matrix-free launches), the card line, and as the
-   last line {"ok": true, "device": {...}}.
+8. The multi-device path (`gp_emu_uqsa_torch.parallel`), every check
+   collected and failing the phase at its end: (a) one rank over NCCL on a
+   localhost store (world size 1, the collectives issued on CUDA
+   tensors) at BASELINE config 5's width, n=16384, through
+   `tools/multi_gpu_run.py`'s checks: build_corr_sharded (K2 rows) against
+   K1's A and exactly symmetric, fit_large with the recursive, panel and
+   block2d factorizations against gp.fit in fp32 and fp64, refine=1 before
+   and after, predictor_large's W, ring_predict and predict_sharded at
+   m=65536 against predict_fast and predict, each timed beside its
+   single-device counterpart with its peak memory, and K2 against its
+   plain version at the row-block and ring-block shapes; then whether NCCL
+   takes two ranks on one card (expected: refused); (b) four gloo ranks
+   spawned on the one card at n=4096: the same checks of
+   `tools/multi_gpu_run.py` on a {"mr": 4} mesh (block2d on 2 x 2), in
+   fp64 with every multi-device result also held against the same
+   function on one rank, then in fp32; mle_fit with 8 restarts over the
+   ranks (K1) against one process in the same batches, config 4's NUTS in
+   fp64 (16 chains a rank) against one process fed the ranks' draws, each
+   rank's peak memory and the bytes each factorization sends. The
+   multi-device launches of K1 and K2 are counted with the counters set
+   to 0 just before each multi-device call and read just after it, in (a)
+   and on each rank of (b); the references and checks run outside.
+9. Print the kernels JSON line (each entry with its serving, training,
+   UQSA, sampling, matrix-free and multi-device launches), the card line,
+   and as the last line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -177,7 +199,10 @@ from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
 from gp_emu_uqsa_torch.ops import precision
 from gp_emu_uqsa_torch.ops.precision import fp32_exact_matmul
-from gp_emu_uqsa_torch.tools import train_linalg
+from gp_emu_uqsa_torch.parallel import init_multihost, make_mesh, spawn_ranks
+from gp_emu_uqsa_torch.parallel.mesh import all_gather, mesh_device
+from gp_emu_uqsa_torch.parallel.runtime import default_backend, free_port
+from gp_emu_uqsa_torch.tools import multi_gpu_run, train_linalg
 from gp_emu_uqsa_torch.tools.k4_high_variants import launches_ms, ptxas_report
 from gp_emu_uqsa_torch.tools.uqsa_forms import gram_log_rho_sum
 import gp_emu_uqsa_torch.noise_fit as nf
@@ -3225,6 +3250,272 @@ def phase_matrix_free(dev, card, k1_ms=None):
     return launches
 
 
+# phase 8, the multi-device path. (a) one rank over NCCL at BASELINE config
+# 5's width (tools/multi_gpu_run.py's checks; the ring's t is (m, n) at one
+# rank, so m is cut from 1M to 65536); (b) four gloo ranks sharing the card
+# at phase 4's fit size: the same checks in fp64, each multi-device result
+# also held against the same function on one rank, then in fp32; mle_fit
+# and config 4's sampler over the ranks against one process. The launches
+# are counted over the multi-device calls alone.
+MD_RANKS = 4
+MD_N, MD_M = 4096, 16384
+# mle_fit over the ranks against one process running the same starts in
+# the same batches of 2, fp32 (the same arithmetic). A batch of all 8 ends
+# elsewhere: after 8 iterations 0.30 apart in NLL on the card, 6.7e-2 in
+# fp32 and 5.8e-6 in fp64 on the CPU at n = 512 (the batched
+# factorizations round by batch size)
+MD_MLE_ITERS, MD_MLE_REL = TRAIN_MAX_ITERS, 1e-6
+# config 4's sampler in fp64, 16 chains a rank, NUTS
+MD_WARMUP, MD_SAMPLES, MD_DEPTH = 8, 4, 4
+MD_SAMPLER_RTOL = 1e-10
+
+
+def _md_nccl_probe(rank):
+    """Two NCCL ranks on one card: an all-reduce."""
+    t = torch.ones(1, device="cuda")
+    torch.distributed.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t)
+
+
+def md_nccl_refusal():
+    """Does NCCL take two ranks on one card? Returns its error text."""
+    try:
+        got = spawn_ranks(_md_nccl_probe, 2, backend="nccl",
+                          device_type="cuda", timeout=120)
+    except RuntimeError as err:
+        text = [ln.strip() for ln in str(err).splitlines()
+                if "NCCL" in ln or "uplicate" in ln or "did not finish" in ln]
+        return "; ".join(dict.fromkeys(text)) or str(err)[-400:]
+    print(f"  FINDING: NCCL took two ranks on one card (all-reduce {got})")
+    return None
+
+
+def md_one_rank(dev):
+    """(a): world size 1 over NCCL on a localhost store, the collectives
+    issued on CUDA tensors (gloo on the CPU, for a rehearsal)."""
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        info = init_multihost(device_type=dev.type)
+        backend = torch.distributed.get_backend()
+        print(f"  (a) init_multihost: {info}, backend {backend}")
+        if (backend != default_backend(dev.type)
+                or not info["initialized_distributed"]):
+            raise SmokeFailure(f"(a) expected an NCCL group, got {backend}")
+        return multi_gpu_run.run(N_TRAIN, M_SERVE, device_type=dev.type)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        # (b)'s ranks share the card: hand back what (a) cached
+        torch.cuda.empty_cache()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _md_mle(holds, chains, rank):
+    """mle_fit with 8 restarts split over the ranks (fp32, K1) against one
+    process running the same starts in the ranks' batches of 2 (the same
+    arithmetic; one batch of 8 ended 0.30 apart in fp32, the card's
+    batched factorizations rounding by batch size). Returns the mesh
+    call's launches."""
+    dev = mesh_device(chains)
+    x_np, y_np = problem(MD_N)
+    x = torch.as_tensor(x_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    h = basis_matrix(x, linear_basis(DIM))
+    cfg = lbfgs.MLEConfig(tries=FIT_TRIES, max_iters=MD_MLE_ITERS)
+    t0 = time.perf_counter()
+    reset_counters()
+    _, info = lbfgs.mle_fit(torch.Generator().manual_seed(0), x, y, h, cfg,
+                            mesh=chains)
+    launches = counters()
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    if rank != 0:
+        return launches
+    lo, hi = lbfgs._default_bounds(cfg, DIM)
+    objective, _, from_logspace = lbfgs._make_objective(x, y, h, cfg, lo, hi,
+                                                        None)
+    u0 = from_logspace(info["starts_logspace"])
+    per = FIT_TRIES // MD_RANKS
+    t0 = time.perf_counter()
+    batches = torch.cat([
+        lbfgs.run_restarts(objective, u0[k:k + per], cfg.max_iters,
+                           cfg.tol)[1] for k in range(0, FIT_TRIES, per)])
+    torch.cuda.synchronize()
+    t_batches = time.perf_counter() - t0
+    holds.close(f"mle_fit over the ranks: NLLs vs one process in batches of "
+                f"{per}", info["nlls"], batches, MD_MLE_REL, 0.0)
+    holds.say(f"  mle_fit, {FIT_TRIES} restarts: {t_mesh:.2f} s over "
+              f"{MD_RANKS} ranks, {t_batches:.2f} s in one process in "
+              f"batches of {per}")
+    return launches
+
+
+def _md_sampler(holds, chains, rank):
+    """Config 4's sampler in fp64, 16 chains a rank, against one process
+    fed the ranks' draws and evaluating the log density in the ranks'
+    batches; the ranks' streams differ. Returns the mesh call's
+    launches."""
+    dev = mesh_device(chains)
+    x, y, h, cfg = roofline.gp_test_posterior(BAYES_N, BAYES_D,
+                                              torch.float64, dev)
+    ld = hmc.make_gp_logdensity(x, y, h, cfg)
+    z0 = BAYES_START_SD * torch.randn(
+        (BAYES_CHAINS, BAYES_D), generator=torch.Generator().manual_seed(0),
+        dtype=torch.float64).to(dev)
+    per = BAYES_CHAINS // MD_RANKS
+    hcfg = hmc.HMCConfig(n_warmup=MD_WARMUP, n_samples=MD_SAMPLES)
+    group = chains.get_group("chains")
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    t0 = time.perf_counter()
+    reset_counters()
+    samples, stats = nuts.nuts_sample(gen(), ld, z0[rank * per:(rank + 1)
+                                                    * per], hcfg,
+                                      max_depth=MD_DEPTH,
+                                      group=(chains, "chains"))
+    launches = counters()
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    samples = all_gather(samples, group).reshape(BAYES_CHAINS,
+                                                 *samples.shape[1:])
+    first = torch.randn(3, generator=hmc.rank_generator(gen(), rank),
+                        dtype=torch.float64, device=dev)
+    firsts = all_gather(first, group)
+    if rank != 0:
+        return launches
+    holds.true("the ranks' generators draw different streams",
+               len({tuple(r.tolist()) for r in firsts}) == MD_RANKS)
+    gens = [hmc.rank_generator(gen(), r) for r in range(MD_RANKS)]
+
+    def ld_grad(z):
+        # in the ranks' batches of 16 chains: the card's batched
+        # factorizations round by batch size, and the trajectories amplify
+        # that (one batch of 64 reads 3.6e-8 apart after 12 transitions)
+        parts = [hmc.value_and_grad(ld, z[r * per:(r + 1) * per])
+                 for r in range(MD_RANKS)]
+        return tuple(torch.cat(f) for f in zip(*parts))
+
+    def step(z, _unused, eps, inv_mass):
+        parts = [nuts._nuts_draws(g, z[r * per:(r + 1) * per], MD_DEPTH)
+                 for r, g in enumerate(gens)]
+        draws = nuts.NutsDraws(*(torch.cat(f) for f in zip(*parts)))
+        return nuts._nuts_transition(ld_grad, z, draws, eps, inv_mass,
+                                     MD_DEPTH, hcfg.divergence_threshold)
+
+    t0 = time.perf_counter()
+    want, wstats = hmc.adaptive_mcmc(None, step, z0, hcfg)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    holds.say(f"  config 4 NUTS, fp64, {BAYES_CHAINS} chains: "
+              f"{t_mesh:.2f} s over {MD_RANKS} ranks, {t_one:.2f} s in one "
+              f"process fed the same draws")
+    holds.close("sampler over the ranks: draws vs one process", samples,
+                want, MD_SAMPLER_RTOL, 1e-12)
+    for key in ("step_size", "inv_mass", "accept_rate"):
+        holds.close(f"sampler over the ranks: {key} vs one process",
+                    stats[key], wstats[key], MD_SAMPLER_RTOL, 1e-14)
+    return launches
+
+
+def _md_rank(rank, device_type):
+    """(b) on one of four gloo ranks sharing cuda:0. The counters are set
+    to 0 just before each multi-device call and read just after it (`run`
+    counts its window the same way); the references run outside."""
+    lines = []
+    holds = multi_gpu_run.Holds(lines.append)
+    chains = make_mesh({"chains": MD_RANKS}, device_type=device_type)
+    launches = dict.fromkeys(_WRAPPERS, 0)
+    peak, sent = {}, {}
+
+    def add(counted):
+        for k, v in counted.items():
+            launches[k] += v
+
+    t0 = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        out = multi_gpu_run.run(MD_N, MD_M, lines.append, device_type,
+                                dtype=dtype,
+                                one_rank=dtype == torch.float64)
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        holds.failures += out["failures"]
+        add(out["launches"])
+        peak[f"{tag} run"] = max(out["peak_gib"].values())
+        sent.update({f"{tag} {k}": v for k, v in out["bytes"].items()})
+    t_fits = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    add(_md_mle(holds, chains, rank))
+    t_mle = time.perf_counter() - t0 - t_fits
+    add(_md_sampler(holds, chains, rank))
+    torch.cuda.synchronize()
+    peak["mle_fit, sampler"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    holds.say(f"  (b) rank {rank}: run fp64 and fp32 {t_fits:.1f} s, mle_fit "
+              f"{t_mle:.1f} s, sampler "
+              f"{time.perf_counter() - t0 - t_fits - t_mle:.1f} s")
+    if rank == 0:
+        # K1 against its plain version at the mle_fit shape, not counted
+        dev = mesh_device(chains)
+        x = torch.as_tensor(problem(MD_N)[0], device=dev)
+        delta = torch.full((DIM,), DELTA, device=dev)
+        got = km.gaussian_corr_self_fused(x, delta, NUGGET)
+        want = km.gaussian_corr_self_plain(x, delta, NUGGET)
+        holds.close(f"K1 at the mle_fit shape n={MD_N} vs plain", got, want,
+                    multi_gpu_run.BUILD_RTOL, multi_gpu_run.BUILD_ATOL)
+        holds.true("K1 bitwise equal to the plain version",
+                   torch.equal(got, want))
+    return {"lines": lines, "failures": holds.failures, "launches": launches,
+            "peak_gib": peak, "bytes": sent}
+
+
+def phase_multi_device(dev, card):
+    """Phase 8: the multi-device path. Every check is collected and the
+    phase fails at its end if any failed. Returns the multi-device
+    launches (K1-K4), (a)'s window and (b)'s summed over the ranks."""
+    print(f"[phase 8] multi-device path ({card})")
+    torch.cuda.empty_cache()
+    failures = []
+    t0 = time.perf_counter()
+    a = md_one_rank(dev)
+    failures += [f"(a) {f}" for f in a["failures"]]
+    t_a = time.perf_counter()
+    refusal = md_nccl_refusal() if dev.type == "cuda" else None
+    print(f"  NCCL with two ranks on one card: "
+          f"{'refused: ' + refusal if refusal else 'accepted'}")
+    t_probe = time.perf_counter()
+    print(f"  (b) {MD_RANKS} gloo ranks sharing the card, n={MD_N}, "
+          f"m={MD_M}, d={DIM}, fp64 (and against one rank) and fp32")
+    ranks = spawn_ranks(_md_rank, MD_RANKS, (dev.type,), backend="gloo",
+                        device_type=dev.type, timeout=600)
+    for line in ranks[0]["lines"]:
+        print(line)
+    for r, out in enumerate(ranks):
+        failures += [f"(b) rank {r}: {f}" for f in out["failures"]]
+        peak = ", ".join(f"{k} {v:.2f}" for k, v in out["peak_gib"].items())
+        print(f"  (b) rank {r}: peak GiB {peak}; launches "
+              f"{out['launches']}, bytes sent {out['bytes']}")
+    launches = {k: a["launches"].get(k, 0)
+                + sum(out["launches"][k] for out in ranks)
+                for k in _WRAPPERS}
+    print(f"  multi-device launches ((a) and the ranks of (b)): {launches}")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        failures.append(f"K1 or K2 never launched on the path: {launches}")
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s on the host "
+          f"clock: (a) {t_a - t0:.1f} s, the NCCL probe {t_probe - t_a:.1f}"
+          f" s, (b) {time.perf_counter() - t_probe:.1f} s")
+    if failures:
+        raise SmokeFailure("phase 8: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3268,6 +3559,7 @@ def main() -> int:
     launches_uqsa = phase_uqsa(dev, card)
     launches_bayes = phase_bayes(dev, card)
     launches_mf = phase_matrix_free(dev, card, k1_ms=rows["K1"][1])
+    launches_md = phase_multi_device(dev, card)
 
     where = {
         "K1": ("gaussian_corr_self", "gp_emu_uqsa_torch/csrc/corr_build.cu",
@@ -3293,6 +3585,8 @@ def main() -> int:
                       "K4 highest": launches_bayes["K4"]}
     launches_mf = {**launches_mf, "K4 high": launches_mf["K4"],
                    "K4 highest": launches_mf["K4"]}
+    launches_md = {**launches_md, "K4 high": launches_md["K4"],
+                   "K4 highest": launches_md["K4"]}
     entries = []
     for key, (name, source, replaces) in where.items():
         err, t, t_wrap, tp, (b, by), lib = rows[key]
@@ -3302,6 +3596,7 @@ def main() -> int:
                         "uqsa_launches": launches_uqsa[key],
                         "sampling_launches": launches_bayes[key],
                         "matrix_free_launches": launches_mf[key],
+                        "multi_device_launches": launches_md[key],
                         "max_abs_err": err, "ms": t, "wrapper_ms": t_wrap,
                         "plain_ms": tp, "bound_ms": b, "bound_by": by,
                         "library_ms": lib})

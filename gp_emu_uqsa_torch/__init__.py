@@ -6,8 +6,10 @@ same module and function names, plain PyTorch around four kernels written
 for `sm_90a`. It carries the training path (config files, multi-restart
 maximum likelihood with the analytic adjoint, validation, written beliefs),
 the serving path (refit at fixed hyperparameters, mean and variance,
-validation against held-out sets) and the UQSA path (`sensitivity`,
-`multi.MultiEmulator`, `design_inputs.optLatinHyperCube`, `plot`).
+validation against held-out sets), the UQSA path (`sensitivity`,
+`multi.MultiEmulator`, `design_inputs.optLatinHyperCube`, `plot`), the
+samplers, the matrix-free path, the noise fit, and the multi-device path
+(`parallel`: SPMD over torch.distributed ranks).
 
     import gp_emu_uqsa_torch as g
     emul = g.setup("toy-sim_config", device="cuda", dtype=torch.float32)

@@ -330,6 +330,7 @@ class Emulator:
         n_samples: int = 500,
         max_depth: int = 8,
         generator: Optional[torch.Generator] = None,
+        group=None,
     ):
         """Full-Bayes hyperparameter inference on all data.
 
@@ -343,6 +344,11 @@ class Emulator:
         seeded with seed + 1000 (the JAX package seeds its key the same
         way; the draws differ). sampler="nuts" is the JAX package's
         measured default (docs/samplers.md).
+
+        `group` (a process group, or a (DeviceMesh, axis name) pair) runs
+        n_chains on each rank with the adaptation shared over the ranks
+        and each rank's draws from its own generator (`inference.hmc`);
+        self.hyper_samples then holds this rank's chains.
         """
         from gp_emu_uqsa_torch.inference.hmc import (
             HMCConfig, hmc_sample, make_gp_logdensity,
@@ -374,9 +380,10 @@ class Emulator:
         cfg = HMCConfig(n_warmup=n_warmup, n_samples=n_samples)
         if sampler == "nuts":
             samples, stats = nuts_sample(generator, logdensity, z0, cfg,
-                                         max_depth=max_depth)
+                                         max_depth=max_depth, group=group)
         else:
-            samples, stats = hmc_sample(generator, logdensity, z0, cfg)
+            samples, stats = hmc_sample(generator, logdensity, z0, cfg,
+                                        group=group)
         self.hyper_samples = samples
         return stats
 

@@ -28,10 +28,20 @@ proposals are rejected, never propagated.
 
 The target is `logdensity(z)`, batched: z (chains, dim) -> (chains,),
 differentiable with autograd (`make_gp_logdensity` for the GP marginal
-posterior). The JAX package's `axis_name` (chains sharded over a device
-mesh, the adaptation statistics reduced by collectives, keys folded in by
-device) belongs to the multi-device path, which is not ported: these
-functions run the chains of one device.
+posterior).
+
+Chains over several ranks (the JAX package's `axis_name`): `group` is a
+process group, or a (DeviceMesh, axis name) pair, and None means one
+device. Each rank runs its own chains; the statistics that the JAX code
+reduces with `lax.pmean` (the mean accept of dual averaging, the Welford
+variance of the metric switch, the reported accept and divergence rates)
+are means over the chains of every rank (`_pmean`: the chains' values
+all-gathered, then one mean), so every rank adapts the same step size
+and metric as one process running all the chains would. Each rank draws
+from its own generator, derived from a draw of the caller's generator and
+the rank (`rank_generator`, the counterpart of `fold_in(key,
+axis_index)`): the same generator on every rank gives decorrelated
+chains.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import torch
 from gp_emu_uqsa_torch import gp
 from gp_emu_uqsa_torch.inference.lbfgs import MLEConfig, _unpack
 from gp_emu_uqsa_torch.ops.precision import fp32_exact
+from gp_emu_uqsa_torch.parallel.mesh import all_gather, group_of, group_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +70,47 @@ class HMCConfig:
     da_gamma: float = 0.05
     da_kappa: float = 0.75
     thin: int = 1
+
+
+def _all_chains(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """x with its chain axis `dim` extended to every rank's chains, in rank
+    order (x itself without a group)."""
+    if group is None:
+        return x
+    parts = all_gather(x, group)                     # (ranks, ...)
+    return torch.cat(list(parts), dim)
+
+
+def _pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """Mean over the chains (axis 0) of every rank of the group. The ranks'
+    chains are gathered and averaged as one batch, so the adaptation is
+    the one-process run's to the last bit: a mean of the ranks' means
+    rounds differently, and dual averaging and the trajectories amplify
+    that (to about 1e-8 after 70 transitions)."""
+    return torch.mean(_all_chains(x, group), 0)
+
+
+def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
+    """A generator for `rank` on generator's device, seeded by
+    np.random.SeedSequence([two integers drawn from generator, rank]).
+
+    The caller's generator advances by that one draw, the same on every
+    rank that holds the same generator; so each rank gets its own stream,
+    the same streams on every run, and a second call with the advanced
+    generator gives new ones (as a split key would)."""
+    words = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                          device=generator.device).tolist()
+    seed = np.random.SeedSequence([*words, rank]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(int(seed))
+
+
+def _rank_streams(generator, group):
+    """(the process group, this rank's generator)."""
+    group = group_of(group)
+    if group is None:
+        return None, generator
+    return group, rank_generator(generator, group_rank(group))
 
 
 def value_and_grad(logdensity: Callable, z: torch.Tensor):
@@ -147,32 +199,41 @@ def make_hmc_step(logdensity: Callable, cfg: HMCConfig):
 
 
 def hmc_sample(generator: torch.Generator, logdensity: Callable, z0,
-               cfg: HMCConfig = HMCConfig()):
+               cfg: HMCConfig = HMCConfig(), *, group=None):
     """Run warmup + sampling for all chains.
 
     Args:
-      generator: torch.Generator on the chains' device.
+      generator: torch.Generator on the chains' device (the same on every
+        rank of `group`; `adaptive_mcmc` derives each rank's own).
       logdensity: batched log density, z (chains, dim) -> (chains,).
-      z0: (chains, dim) initial positions.
+      z0: (chains, dim) initial positions (this rank's chains).
+      group: the ranks that share the adaptation (module docstring).
 
     Returns (samples (chains, n_kept, dim), stats dict).
     """
     return adaptive_mcmc(generator, make_hmc_step(logdensity, cfg),
-                         torch.as_tensor(z0), cfg)
+                         torch.as_tensor(z0), cfg, group=group)
 
 
-def _rates(accepts, diverged, dtype):
-    return (torch.mean(torch.stack(accepts)),
-            torch.mean(torch.stack(diverged).to(dtype)))
+def _rates(accepts, diverged, dtype, group):
+    """The accept and divergence rates: means over the draws and the
+    chains of every rank."""
+    return (torch.mean(_all_chains(torch.stack(accepts), group, 1)),
+            torch.mean(_all_chains(torch.stack(diverged).to(dtype), group,
+                                   1)))
 
 
-def adaptive_mcmc(generator: torch.Generator, step_fn, z0, cfg: HMCConfig):
+def adaptive_mcmc(generator: torch.Generator, step_fn, z0, cfg: HMCConfig,
+                  *, group=None):
     """Shared warmup+sampling driver for any batched MCMC transition kernel.
 
     step_fn(z (chains, dim), generator, eps, inv_mass) -> (z_new,
     accept_stat (chains,), diverged (chains,)); used by both HMC and NUTS.
-    The adaptation statistics are means over the chains of this device.
+    The adaptation statistics are means over the chains of every rank of
+    `group` (this device's chains when None); with a group, step_fn draws
+    from this rank's `rank_generator`.
     """
+    group, generator = _rank_streams(generator, group)
     z = torch.as_tensor(z0)
     dtype, dev = z.dtype, z.device
     dim = z.shape[1]
@@ -195,7 +256,7 @@ def adaptive_mcmc(generator: torch.Generator, step_fn, z0, cfg: HMCConfig):
         eps = torch.exp(log_eps)
         z, accept_prob, _ = step_fn(z, generator, eps, inv_mass)
         # --- dual averaging over the chains --------------------------------
-        mean_accept = torch.mean(accept_prob, 0)
+        mean_accept = _pmean(accept_prob, group)
         t = step_idx + 1.0
         # the DA clock restarts after the metric switch (stage 3)
         t_eff = t - s2_end if step_idx >= s2_end else t
@@ -213,7 +274,7 @@ def adaptive_mcmc(generator: torch.Generator, step_fn, z0, cfg: HMCConfig):
             welf_m2 = welf_m2 + delta * (z - welf_mean)
         # --- metric switch at the end of stage 2 ---------------------------
         if step_idx == s2_end - 1:
-            var = torch.mean(welf_m2, 0) / max(welf_n - 1.0, 1.0)
+            var = _pmean(welf_m2, group) / max(welf_n - 1.0, 1.0)
             # Stan-style regularization toward a small unit metric
             inv_mass = ((welf_n / (welf_n + 5.0)) * var
                         + (5.0 / (welf_n + 5.0)) * 1e-3)
@@ -231,7 +292,7 @@ def adaptive_mcmc(generator: torch.Generator, step_fn, z0, cfg: HMCConfig):
         diverged.append(div)
     # (chains, n_samples, dim), thinned
     samples = torch.stack(zs, 1)[:, ::cfg.thin]
-    accept_rate, divergence_rate = _rates(accepts, diverged, dtype)
+    accept_rate, divergence_rate = _rates(accepts, diverged, dtype, group)
     stats = {
         "step_size": eps_final,
         "inv_mass": inv_mass,
@@ -244,7 +305,7 @@ def adaptive_mcmc(generator: torch.Generator, step_fn, z0, cfg: HMCConfig):
 
 
 def mcmc_continue(generator: torch.Generator, step_fn, z, eps, inv_mass,
-                  n_samples: int, *, thin: int = 1):
+                  n_samples: int, *, thin: int = 1, group=None):
     """Sampling-only continuation with a FROZEN adapted metric.
 
     The exact-resume counterpart to `adaptive_mcmc` (which always re-runs
@@ -258,7 +319,10 @@ def mcmc_continue(generator: torch.Generator, step_fn, z, eps, inv_mass,
 
     Returns (samples (chains, n_samples/thin, dim), stats, generator): the
     generator, advanced past the segment, is what the next segment takes.
+    With a `group`, the draws come from this rank's `rank_generator` and
+    that is the generator returned; the rates are means over every rank.
     """
+    group, generator = _rank_streams(generator, group)
     z = torch.as_tensor(z)
     zs, accepts, diverged = [], [], []
     for _ in range(n_samples):
@@ -267,7 +331,7 @@ def mcmc_continue(generator: torch.Generator, step_fn, z, eps, inv_mass,
         accepts.append(accept_prob)
         diverged.append(div)
     samples = torch.stack(zs, 1)[:, ::thin]
-    accept_rate, divergence_rate = _rates(accepts, diverged, z.dtype)
+    accept_rate, divergence_rate = _rates(accepts, diverged, z.dtype, group)
     stats = {
         "step_size": eps,
         "inv_mass": inv_mass,
@@ -278,11 +342,12 @@ def mcmc_continue(generator: torch.Generator, step_fn, z, eps, inv_mass,
 
 
 def hmc_continue(generator: torch.Generator, logdensity, z, eps, inv_mass,
-                 n_samples: int, cfg: HMCConfig = HMCConfig()):
+                 n_samples: int, cfg: HMCConfig = HMCConfig(), *,
+                 group=None):
     """HMC sampling-only continuation (see mcmc_continue)."""
     return mcmc_continue(generator, make_hmc_step(logdensity, cfg),
                          torch.as_tensor(z), eps, inv_mass, n_samples,
-                         thin=cfg.thin)
+                         thin=cfg.thin, group=group)
 
 
 def split_rhat(samples) -> torch.Tensor:

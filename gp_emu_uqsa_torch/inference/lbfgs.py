@@ -30,6 +30,9 @@ import torch
 
 from gp_emu_uqsa_torch import gp
 from gp_emu_uqsa_torch.kernels import GPParams
+from gp_emu_uqsa_torch.parallel.mesh import (
+    all_gather, axis_group, group_rank, group_size,
+)
 
 # optax.lbfgs() and its zoom linesearch, with optax 0.2.6's defaults
 MEMORY = 10
@@ -460,21 +463,38 @@ def run_restarts(objective, u0s: torch.Tensor, max_iters: int, tol: float):
 
 
 def mle_fit(generator: torch.Generator, x, y, h, cfg: MLEConfig = MLEConfig(),
-            *, noise_diag=None):
+            *, noise_diag=None, mesh=None, axis: str = "chains"):
     """Multi-restart MLE. Returns (best GPParams, info dict).
 
     info holds the per-restart final NLLs (`nlls`), iteration counts
     (`iters`), the LHC starts (`starts_logspace`), `best_index` and
     `best_nll`. The starts come from `generator` (a CPU torch.Generator);
     everything else runs where x is, in x's dtype.
+
+    With `mesh`, the restarts are split over mesh axis `axis` (the JAX
+    package shards the restart axis the same way): every rank draws the
+    same starts from its generator (seeded alike on every rank) and runs
+    its cfg.tries / p of them through `run_restarts` (on the card K1 once
+    a restart an evaluation); the NLLs, iterations and end points are
+    all-gathered, so every rank chooses the same best. cfg.tries must be a
+    multiple of the axis size.
     """
     d = x.shape[1]
     lo, hi = _default_bounds(cfg, d)
     objective, to_logspace, from_logspace = _make_objective(
         x, y, h, cfg, lo, hi, noise_diag)
     z0s = _lhc_starts(generator, cfg.tries, lo, hi, x.dtype).to(x.device)
-    us, vs, iters = run_restarts(objective, from_logspace(z0s), cfg.max_iters,
-                                 cfg.tol)
+    group = axis_group(mesh, axis)
+    p, me = group_size(group), group_rank(group)
+    if cfg.tries % p:
+        raise ValueError(f"{cfg.tries} restarts do not split over {p} ranks")
+    k = cfg.tries // p
+    mine = from_logspace(z0s[me * k:(me + 1) * k])
+    us, vs, iters = run_restarts(objective, mine, cfg.max_iters, cfg.tol)
+    if group is not None:
+        us = all_gather(us, group).reshape(cfg.tries, -1)
+        vs = all_gather(vs, group).reshape(cfg.tries)
+        iters = all_gather(iters, group).reshape(cfg.tries)
     best = torch.argmin(torch.where(torch.isfinite(vs), vs,
                                     torch.full_like(vs, float("inf"))))
     params = _unpack(to_logspace(us[best]), cfg, d, x.dtype)

@@ -245,23 +245,25 @@ def make_nuts_step(logdensity, max_depth: int = 8,
 
 
 def nuts_sample(generator: torch.Generator, logdensity, z0,
-                cfg: HMCConfig = HMCConfig(), *, max_depth: int = 8):
+                cfg: HMCConfig = HMCConfig(), *, max_depth: int = 8,
+                group=None):
     """NUTS with the shared cross-chain adaptive warmup (see hmc.py).
 
     cfg.n_leapfrog is ignored (trajectory length is dynamic, capped at
     2^max_depth - 1 leapfrog steps). The stats carry the step function's
-    `counts`.
+    `counts` (this rank's). `group`: chains over ranks (hmc.py).
     """
     step = make_nuts_step(logdensity, max_depth=max_depth,
                           divergence_threshold=cfg.divergence_threshold)
-    samples, stats = adaptive_mcmc(generator, step, torch.as_tensor(z0), cfg)
+    samples, stats = adaptive_mcmc(generator, step, torch.as_tensor(z0), cfg,
+                                   group=group)
     stats["counts"] = step.counts
     return samples, stats
 
 
 def nuts_continue(generator: torch.Generator, logdensity, z, eps, inv_mass,
                   n_samples: int, *, max_depth: int = 8,
-                  divergence_threshold: float = 1000.0):
+                  divergence_threshold: float = 1000.0, group=None):
     """NUTS sampling-only continuation with a frozen adapted metric.
 
     Exact-resume counterpart to nuts_sample (see hmc.mcmc_continue):
@@ -271,6 +273,7 @@ def nuts_continue(generator: torch.Generator, logdensity, z, eps, inv_mass,
     step = make_nuts_step(logdensity, max_depth=max_depth,
                           divergence_threshold=divergence_threshold)
     samples, stats, generator = mcmc_continue(
-        generator, step, torch.as_tensor(z), eps, inv_mass, n_samples)
+        generator, step, torch.as_tensor(z), eps, inv_mass, n_samples,
+        group=group)
     stats["counts"] = step.counts
     return samples, stats, generator

@@ -117,3 +117,18 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(fn, args):
     with pytest.raises(ValueError, match="CUDA device"):
         fn(*[meta.get(a, a) if isinstance(a, str) else a for a in args])
     assert fn.launches == before
+
+
+def test_the_scans_cover_the_multi_device_path():
+    """The import and source scans above walk every module of the package,
+    the multi-device path's included."""
+    names = {m.removeprefix("gp_emu_uqsa_torch.") for m in _all_modules()}
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    for mod in ("parallel", "parallel.runtime", "parallel.mesh",
+                "parallel.predict", "parallel.sharded_gp",
+                "parallel.large_fit", "parallel.ring",
+                "ops.distributed_cholesky", "ops.block_cyclic",
+                "tools.multi_gpu_run"):
+        assert mod in names
+        path = mod.replace(".", "/")
+        assert f"{path}.py" in files or f"{path}/__init__.py" in files

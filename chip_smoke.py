@@ -87,7 +87,7 @@ each of which fails the run with a non-zero exit:
    chains; tools/long_chain.py's settings): the batched log density and
    gradient at the starts against fp64 within phase 4's kappa(A) budgets
    beside the TF32-backward control; nuts_sample with 24 warmup draws at
-   max depth 4, then 8 nuts_continue segments of 8 draws at max depth 5,
+   max depth 4, then 4 nuts_continue segments of 8 draws at max depth 5,
    the chain state through save_hmc_state/load_hmc_state between them and
    one segment rerun from its checkpoint bit for bit; draws/s, ms a
    batched leapfrog, ESS, split R-hat, accept and divergence rates, tree
@@ -153,9 +153,24 @@ each of which fails the run with a non-zero exit:
    multi-device launches of K1 and K2 are counted with the counters set
    to 0 just before each multi-device call and read just after it, in (a)
    and on each rank of (b); the references and checks run outside.
-9. Print the kernels JSON line (each entry with its serving, training,
-   UQSA, sampling, matrix-free and multi-device launches), the card line,
-   and as the last line {"ok": true, "device": {...}}.
+9. The example workflows (`gp_emu_uqsa_torch.examples`), each module's
+   workflow at its published size in a launch window of its own, timed
+   with its peak memory, every check collected and failing the phase at
+   its end: BASELINE config 5 (`large_scale.run`: n=16384, d=8, m=1M,
+   block 256, fp32, one NCCL rank) through fit_large, predictor_large, the
+   ring in chunks of 65536 queries and the fused tier (K2, K3, K4 "high"
+   launched), the fused mean and variance against the ring's at
+   tests/test_serve_facade.py:35-38's tolerances on all 1M points, every
+   mean against an fp64 CPU fit on the first 4096 queries (phase 3b's
+   budget), the ring's and the fused tier's points/s; configs 2, 3, 4 and
+   1 (branin_2d, synthetic_10d, hmc_bayes, toy_sim), sensitivity_2d,
+   noise_fit (both scripts) and matrix_free, in fp64 as their scripts,
+   held to tests/test_acceptance_configs.py's bounds (split R-hat < 1.1
+   for config 4, the serving RMSE < 3e-3 for matrix_free, phase 4 (g)'s
+   grid RMSE for config 1).
+10. Print the kernels JSON line (each entry with its serving, training,
+   UQSA, sampling, matrix-free, multi-device and examples launches), the
+   card line, and as the last line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -167,6 +182,7 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import multiprocessing
@@ -176,6 +192,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -189,6 +206,10 @@ from gp_emu_uqsa_torch import (
 from gp_emu_uqsa_torch.basis import basis_matrix, linear_basis
 from gp_emu_uqsa_torch.configs import Beliefs
 from gp_emu_uqsa_torch.design_inputs import optLatinHyperCube
+from gp_emu_uqsa_torch.examples import (
+    branin_2d, hmc_bayes, large_scale, matrix_free, noise_fit,
+    sensitivity_2d, synthetic_10d, toy_sim,
+)
 from gp_emu_uqsa_torch.inference import hmc, lbfgs, nuts
 from gp_emu_uqsa_torch.inference import matrix_free as mf
 from gp_emu_uqsa_torch.multi import MultiEmulator
@@ -318,14 +339,17 @@ MULTI_ROWS_RTOL = 1e-6
 # all at 0), so the log density is held at 64 different points.
 BAYES_N, BAYES_D, BAYES_CHAINS = 1024, 8, 64
 BAYES_WARMUP, BAYES_WARMUP_DEPTH = 24, 4
-BAYES_SEGMENTS, BAYES_SEGMENT_DRAWS, BAYES_DEPTH = 8, 8, 5
+# 4 segments, cut from 8 to make room for phase 9 in the run's time
+BAYES_SEGMENTS, BAYES_SEGMENT_DRAWS, BAYES_DEPTH = 4, 8, 5
 BAYES_RERUN_SEGMENT = 3
 BAYES_START_SD = 0.25
 HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 24, 16, 8
 # (b) a d = 2 posterior at n = 512 (fp32: K1 runs), NUTS against a
 # quadrature of the same log density: mean and sd of each log delta within
 # QUAD_MCSE Monte-Carlo standard errors (sd / sqrt(ESS))
-QUAD_N, QUAD_CHAINS, QUAD_WARMUP, QUAD_DRAWS, QUAD_DEPTH = 512, 16, 200, 400, 6
+# 50 + 100 draws, cut from 200 + 400 (phase 9's room): the bound
+# is in Monte-Carlo standard errors, which grow as the draws shrink
+QUAD_N, QUAD_CHAINS, QUAD_WARMUP, QUAD_DRAWS, QUAD_DEPTH = 512, 16, 50, 100, 6
 QUAD_GRID, QUAD_CHUNK, QUAD_MCSE = 80, 256, 5.0
 # (c) one NUTS and one HMC transition from the same draws, card and CPU,
 # fp64: z relative, the accept statistic absolute (it lies in [0, 1], and
@@ -429,6 +453,12 @@ NF_BAND = {"bottom": 3.2, "top": 2.5}
 # quantity's largest entry: a noise variance is est_total - latent, which
 # cancels where the two agree (one entry read 1.5e-10 of itself)
 NF_REPLAY_RTOL = 1e-10
+# (d)'s CPU fits: L-BFGS iterations (the default 200; cut for phase 9's
+# room)
+NF_REPLAY_MAX_ITERS = 20
+# (e): one alternating iteration (cut from 3 for phase 9's room;
+# phase 9 runs examples/noise-fit's scripts at their stopat 5)
+NF_FILES_STOPAT = 1
 # (f) utils.timing.timed on K1 against phase 2's ms
 TIMED_AGREE = 0.2
 
@@ -3093,8 +3123,10 @@ def nf_replay(dev, failures):
     real = nf.mle_fit
     fits, seen = [], {"cpu": [], "card": []}
 
-    def record(*args, **kwargs):
-        out = real(*args, **kwargs)
+    def record(generator, x_, y_, h_, cfg, **kwargs):
+        # capped: the card replays whatever fits the CPU made
+        out = real(generator, x_, y_, h_, dataclasses.replace(
+            cfg, max_iters=NF_REPLAY_MAX_ITERS), **kwargs)
         fits.append(out)
         return out
 
@@ -3151,7 +3183,8 @@ def nf_files(dev, failures):
         shutil.copytree(src, work)
         t0 = time.perf_counter()
         res = nf.noisefit(work / "noisefit_data_config",
-                          work / "noisefit_noise_config", stopat=3, device=dev)
+                          work / "noisefit_noise_config",
+                          stopat=NF_FILES_STOPAT, device=dev)
         t = time.perf_counter() - t0
         names = sorted(p.name for p in work.iterdir()
                        if "-noise" in p.name or p.name.endswith("-f"))
@@ -3161,7 +3194,8 @@ def nf_files(dev, failures):
                    "noisefit_noise_beliefs-f"])
         noise = (np.loadtxt(work / "noisefit_output-noise")
                  if (work / "noisefit_output-noise").exists() else None)
-    print(f"  (e) noisefit(stopat=3) on examples/noise-fit: {t:.1f} s, wrote "
+    print(f"  (e) noisefit(stopat={NF_FILES_STOPAT}) on examples/noise-fit: "
+          f"{t:.1f} s, wrote "
           f"{names}; -noise positive: "
           f"{noise is not None and bool(np.all(noise > 0))}")
     if not set(want) <= set(names):
@@ -3264,7 +3298,8 @@ MD_N, MD_M = 4096, 16384
 # elsewhere: after 8 iterations 0.30 apart in NLL on the card, 6.7e-2 in
 # fp32 and 5.8e-6 in fp64 on the CPU at n = 512 (the batched
 # factorizations round by batch size)
-MD_MLE_ITERS, MD_MLE_REL = TRAIN_MAX_ITERS, 1e-6
+# 4 iterations (cut from phase 4's 8 for phase 9's room)
+MD_MLE_ITERS, MD_MLE_REL = 4, 1e-6
 # config 4's sampler in fp64, 16 chains a rank, NUTS
 MD_WARMUP, MD_SAMPLES, MD_DEPTH = 8, 4, 4
 MD_SAMPLER_RTOL = 1e-10
@@ -3516,6 +3551,376 @@ def phase_multi_device(dev, card):
     return launches
 
 
+# ----- phase 9: the example workflows --------------------------------------
+
+EX_M = 1_000_000         # config 5's queries (run_large.py's published m)
+EX_BLOCK = 256           # run_large.py's block
+EX_CHUNK = 65536         # config 5's ring: queries a rank in one call
+EX_REF_M = 4096          # config 5's fp64 CPU reference: the first queries
+EX_REF_THREADS = 2       # its CPU threads, beside the workers
+# the fp64 workflows are host-bound (small L-BFGS and sampler steps): they
+# run in spawned workers on the card, one torch thread each, after config 5
+EX_WORKERS = 4
+# phase 3b's budgets: an fp32 mean against fp64, of max |mean|
+EX_MEAN_REL = 1e-3
+EX_RHAT = 1.1            # config 4: split R-hat on every dimension
+# examples/matrix-free at its n = 800: the serving RMSE against the
+# noiseless simulator under half the data's noise sd (0.05). Phase 7's 3e-3
+# (n = 131072) does not carry over: at n = 800 the JAX script itself
+# prints 6.8e-3 (its subset-MLE starts and probes), and the port fed the
+# same draws ends where it does to 1e-7; the port's own CPU draws give
+# 1.03e-2 (8 probes: the fit varies with them)
+EX_MF_RMSE = 0.025
+
+
+def _ex_run(name, fn, card, failures, times):
+    """fn() in a window of its own: the launch counters and the peak
+    memory set to 0 just before, read just after; the seconds on the host
+    clock, synchronized. A failure is collected and gives (None, {})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    except Exception:
+        text = traceback.format_exc()
+        print(text)
+        failures.append(f"{name}: {text.strip().splitlines()[-1]}")
+        return None, {}
+    t = time.perf_counter() - t0
+    got = counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    times[name] = (t, peak)
+    print(f"  {name}: {t:.1f} s, peak allocated {peak:.2f} GiB, launches "
+          f"{got} ({card})")
+    return out, got
+
+
+def _ex_hold(failures, name, ok, detail):
+    print(f"    {name}: {detail} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name}: {detail}")
+
+
+def _ex_close(failures, name, got, want, rtol, atol):
+    try:
+        check_close(name, got, want, rtol, atol)
+    except SmokeFailure as err:
+        failures.append(str(err))
+
+
+def ex_reference():
+    """Config 5's fp64 CPU reference: an fp64 fit of the same (fp32-rounded)
+    data and its mean at the first EX_REF_M queries (the same draws as
+    large_scale.run's); (queries, means, seconds). Runs in a worker while
+    config 5 runs on the card."""
+    torch.set_num_threads(EX_REF_THREADS)
+    t0 = time.perf_counter()
+    x, _, _, xq, _ = large_scale.problem(N_TRAIN, EX_REF_M, DIM,
+                                         torch.float32, "cpu")
+    x, xq = x.double(), xq.double()
+    y = torch.sin(3 * x[:, 0]) + x[:, 1] * x[:, 2]
+    spec = linear_basis(DIM)
+    p64 = params_from_numpy(np.log(np.full(DIM, large_scale.DELTA)), 0.0,
+                            np.log(large_scale.NUGGET), device="cpu",
+                            dtype=torch.float64)
+    st = gp.fit(p64, x, y, basis_matrix(x, spec))
+    m64 = basis_matrix(xq, spec) @ st.beta + kernels.corr(xq, x, p64) @ st.e
+    return xq, m64, time.perf_counter() - t0
+
+
+def hold_reference(subset, reference, failures):
+    """Every config 5 mean at the first EX_REF_M queries (`subset`, from
+    ex_config5) against the fp64 CPU reference (phase 3b's budget,
+    relative to max |mean|)."""
+    xq, m64, seconds = reference
+    _ex_hold(failures, "config 5 reference queries are the run's",
+             torch.equal(subset.pop("queries").float(), xq.float()), "")
+    scale = float(m64.abs().max())
+    for name, mean in subset.items():
+        rel = float((mean - m64).abs().max()) / scale
+        _ex_hold(failures, f"config 5 {name} mean vs fp64 CPU "
+                 f"(first {EX_REF_M})", rel < EX_MEAN_REL,
+                 f"{rel:.3e} of max |mean| (< {EX_MEAN_REL:g})")
+    print(f"    the fp64 CPU reference took {seconds:.1f} s in a worker "
+          f"({EX_REF_THREADS} threads)")
+
+
+def ex_config5(dev, card, failures, times):
+    """BASELINE config 5 at n=16384, m=1M through `large_scale.run` (one
+    NCCL rank); the fused tier against the ring. Returns the launches and
+    the queries and means at the first EX_REF_M queries, on the host in
+    fp64, for `hold_reference`."""
+    out, got = _ex_run(
+        "large_scale (config 5, n=16384, m=1M, fp32)",
+        lambda: large_scale.run(N_TRAIN, EX_M, DIM, EX_BLOCK,
+                                chunk=EX_CHUNK, device=dev), card, failures,
+        times)
+    if out is None:
+        return got, None
+    _ex_hold(failures, "config 5: K2, K3 and K4 \"high\" launched",
+             min(got["K2"], got["K3"], got["K4"]) > 0, str(got))
+    (rm, rv), (fm, fv), fmo = out.ring, out.fused, out.fused_mean
+    for name, v in (("ring mean", rm), ("ring var", rv), ("fused mean", fm),
+                    ("fused var", fv), ("fused mean-only", fmo)):
+        finite = bool(torch.isfinite(v).all())
+        _ex_hold(failures, f"config 5 {name}",
+                 tuple(v.shape) == (EX_M,) and finite,
+                 f"shape {tuple(v.shape)}, finite {finite}")
+    _ex_hold(failures, "config 5 variances >= 0",
+             float(rv.min()) >= 0 and float(fv.min()) >= 0,
+             f"min ring {float(rv.min()):.3e}, fused {float(fv.min()):.3e}")
+    s2 = float(out.state.sigma2)
+    # tests/test_serve_facade.py:35-38, fused tier against the other tier
+    for name, mean in (("mean", fm), ("mean-only", fmo)):
+        _ex_close(failures, f"config 5 fused {name} vs ring (m=1M)", mean,
+                  rm, 1e-4, 1e-4 * max(1.0, s2))
+    _ex_close(failures, "config 5 fused var vs ring (m=1M)", fv, rv, 2e-3,
+              1e-4 * s2)
+    sec = out.seconds
+    print(f"    config 5 rates: ring {EX_M / sec['ring_predict']:,.0f} "
+          f"mean+var points/s; fused {EX_M / sec['fused mean+var']:,.0f} "
+          f"mean+var, {EX_M / sec['fused mean']:,.0f} mean-only; fit_large "
+          f"{sec['fit_large'] * 1e3:.1f} ms, predictor_large "
+          f"{sec['predictor_large'] * 1e3:.1f} ms ({card})")
+    subset = {name: v[:EX_REF_M].double().cpu() for name, v in (
+        ("queries", out.xs), ("ring", rm), ("fused", fm),
+        ("fused mean-only", fmo))}
+    del out
+    torch.cuda.empty_cache()
+    return got, subset
+
+
+def ex_branin(dev, card, failures, times, work):
+    """BASELINE config 2 at n=80, 8 tries (tests/test_acceptance_configs.py
+    :20-38's bounds)."""
+    out, got = _ex_run("branin_2d (config 2, n=80, fp64)",
+                       lambda: branin_2d.main(device=dev, verbose=False),
+                       card, failures, times)
+    if out is None:
+        return got
+    emul, sens = out
+    noise_var = float(torch.exp(emul.params.log_nugget) * emul.state.sigma2)
+    _ex_hold(failures, "branin noise variance", 0.2 < noise_var < 80.0,
+             f"{noise_var:.3f} in (0.2, 80)")
+    xt = np.random.default_rng(1).uniform([-5, 0], [10, 15], size=(200, 2))
+    mean, _ = emul.predict(xt)
+    truth = branin_2d.branin(xt[:, 0], xt[:, 1])
+    rel = float(np.sqrt(np.mean((mean.cpu().numpy() - truth) ** 2))
+                / np.std(truth))
+    _ex_hold(failures, "branin relative RMSE on the truth", rel < 0.25,
+             f"{rel:.4f} (< 0.25)")
+    si = sens.sensitivity()["S_i"].cpu().numpy()
+    _ex_hold(failures, "branin S_i", bool(np.all(si > -0.01))
+             and si.sum() < 1.15, f"{np.round(si, 4)}, sum {si.sum():.4f}")
+    return got
+
+
+def ex_10d(dev, card, failures, times, work):
+    """BASELINE config 3 at n=500, 8 tries (tests/test_acceptance_configs.py
+    :40-75's ordering and Monte-Carlo check on the emulator)."""
+    out, got = _ex_run("synthetic_10d (config 3, n=500, fp64)",
+                       lambda: synthetic_10d.main(device=dev, verbose=False),
+                       card, failures, times)
+    if out is None:
+        return got
+    emul, _, si, _ = out
+    s_i = si["S_i"].cpu().numpy()
+    _ex_hold(failures, "10-D S_i ordering", s_i[0] > s_i[2] > s_i[4]
+             and s_i[0] > 0.15 and bool(np.all(s_i[8:] < 0.02)),
+             f"{np.round(s_i, 4)}")
+    rng = np.random.default_rng(2)
+    z = 0.5 + np.sqrt(0.02) * rng.standard_normal((8000, 10))
+    mean_z, var_z = emul.predict(z)
+    mc = float(mean_z.cpu().numpy().var() + var_z.cpu().numpy().mean())
+    v_total = float(si["V_total"])
+    _ex_hold(failures, "10-D V_total vs Monte Carlo on the emulator",
+             abs(v_total - mc) / mc < 0.15,
+             f"{v_total:.5g} vs {mc:.5g} (within 15%)")
+    return got
+
+
+def ex_hmc(dev, card, failures, times, work):
+    """BASELINE config 4: 64 chains, HMC, n=120, 400 + 400 draws."""
+    name = "hmc_bayes (config 4, 64 chains, 400 + 400, fp64)"
+    out, got = _ex_run(name, lambda: hmc_bayes.main(device=dev), card,
+                       failures, times)
+    if out is None:
+        return got
+    samples, stats = out
+    rhat = hmc.split_rhat(samples).cpu().numpy()
+    _ex_hold(failures, "config 4 split R-hat", bool(np.all(rhat < EX_RHAT))
+             and bool(torch.isfinite(samples).all()),
+             f"{np.round(rhat, 4)} (< {EX_RHAT})")
+    draws = samples.shape[0] * samples.shape[1]
+    print(f"    config 4: {draws / times[name][0]:.0f} post-warmup draws/s "
+          f"over the whole run, accept {float(stats['accept_rate']):.3f} "
+          f"({card})")
+    return got
+
+
+def ex_toy(dev, card, failures, times, work):
+    """BASELINE config 1: setup -> train -> final_build, LOO, a 201-point
+    grid (phase 4 (g)'s bound)."""
+    out, got = _ex_run("toy_sim (config 1, fp64)",
+                       lambda: toy_sim.main(device=dev, workdir=work,
+                                            verbose=False), card, failures,
+                       times)
+    if out is None:
+        return got
+    _, (_, _, se), (xg, mean, var) = out
+    written = sorted(p.name for p in (work / "toy-sim").glob("*-f"))
+    _ex_hold(failures, "toy-sim final_build files", written == [
+        "toy-sim_beliefs-f", "toy-sim_input-f", "toy-sim_output-f"],
+        str(written))
+    rmse = float(np.sqrt(np.mean((mean.cpu().numpy()
+                                  - toy_sim.toy_sim(xg)) ** 2)))
+    _ex_hold(failures, "toy-sim grid RMSE against the simulator",
+             rmse < 0.05 and float(var.min()) >= 0
+             and bool(torch.isfinite(se).all()),
+             f"{rmse:.3e} (< 0.05) on {len(xg)} points; LOO max |std err| "
+             f"{float(se.abs().max()):.3f}")
+    return got
+
+
+def ex_sensitivity(dev, card, failures, times, work):
+    """examples/sensitivity-2d's file workflow (tests/test_acceptance_
+    configs.py:78-101's bounds, read from the written table)."""
+    out, got = _ex_run("sensitivity_2d (fp64)",
+                       lambda: sensitivity_2d.main(device=dev, workdir=work,
+                                                   verbose=False),
+                       card, failures, times)
+    if out is None:
+        return got
+    tree = out[2]
+    lines = (tree / "sens2d_indices").read_text().strip().splitlines()
+    rows = [ln.split() for ln in lines[4:]]
+    s_i = np.array([float(r[2]) for r in rows])
+    s_ti = np.array([float(r[4]) for r in rows])
+    _ex_hold(failures, "sensitivity-2d indices table",
+             lines[0].startswith("E*[E(Y)]") and s_i[0] > s_i[1] > 0
+             and 0.9 < s_i.sum() < 1.1 and bool(np.all(s_ti >= s_i - 0.02))
+             and (tree / "sens2d_beliefs-f").exists(),
+             f"S_i {s_i}, S_Ti {s_ti}")
+    return got
+
+
+def ex_noise(dev, card, failures, times, work):
+    """examples/noise-fit, both scripts (tests/test_acceptance_configs.py
+    :104-129: the files written, the estimated sd rising)."""
+    out, got = _ex_run("noise_fit (arrays, n=200, stopat=5, fp64)",
+                       lambda: noise_fit.main(device=dev, verbose=False),
+                       card, failures, times)
+    if out is not None:
+        est = out[1]
+        _ex_hold(failures, "noise fit (arrays) sd rising",
+                 bool(np.all(np.isfinite(est))) and est[-1] > est[0],
+                 f"{est[0]:.3f} at 0.05 -> {est[-1]:.3f} at 0.95 (truth "
+                 f"0.12 -> 0.48)")
+    out, got_files = _ex_run(
+        "noise_fit (files, stopat=5, olhcmult=100, fp64)",
+        lambda: noise_fit.main_files(device=dev, workdir=work,
+                                     verbose=False), card, failures, times)
+    if out is not None:
+        tree = out[2]
+        names = ("noisefit_output-noise-it0", "noisefit_output-noise",
+                 "noisefit_data_beliefs-f", "noisefit_noise_beliefs-f")
+        it0 = np.loadtxt(tree / names[0])
+        rise = np.sqrt(nf.predict_noise(out[0], np.array([0.1, 0.9])))
+        _ex_hold(failures, "noise fit (files) written and rising",
+                 all((tree / f).exists() for f in names)
+                 and it0.shape == (150,) and bool(np.all(it0 > 0))
+                 and rise[1] > rise[0],
+                 f"sd {rise[0]:.3f} at 0.1 -> {rise[1]:.3f} at 0.9")
+    return {k: got.get(k, 0) + got_files.get(k, 0) for k in _WRAPPERS}
+
+
+def ex_matrix_free(dev, card, failures, times, work):
+    """examples/matrix-free at its n=800, 60 Adam steps: the serving RMSE."""
+    out, got = _ex_run("matrix_free (n=800, 60 steps, fp64)",
+                       lambda: matrix_free.main(device=dev, verbose=False),
+                       card, failures, times)
+    if out is not None:
+        _ex_hold(failures, "matrix-free serving RMSE", out[2] < EX_MF_RMSE,
+                 f"{out[2]:.3e} (< {EX_MF_RMSE:g}; phase 7's {MF_RMSE:g} is "
+                 f"at n = 131072)")
+    return got
+
+
+# the workflows the workers run, the longest first (phase 9 alone on an H100
+# 80GB HBM3 at 700 W: 86, 58, 57, 27 + 26, 9, 6 and 4 s one after another)
+EXAMPLE_RUNS = {"toy_sim": ex_toy, "hmc_bayes": ex_hmc,
+                "sensitivity_2d": ex_sensitivity, "noise_fit": ex_noise,
+                "synthetic_10d": ex_10d, "matrix_free": ex_matrix_free,
+                "branin_2d": ex_branin}
+
+
+def _ex_job(name, device_type, card, work):
+    """One workflow of EXAMPLE_RUNS in a worker: (its printed lines,
+    failures, (seconds, peak GiB) by window, launches)."""
+    torch.set_num_threads(1)
+    failures, times = [], {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = EXAMPLE_RUNS[name](torch.device(device_type), card, failures,
+                                 times, Path(work))
+    return buf.getvalue(), failures, times, got
+
+
+def phase_examples(dev, card):
+    """Phase 9: every module of `gp_emu_uqsa_torch.examples` at its
+    published size, each in a launch window of its own: config 5 in this
+    process alone on the card (its fp64 CPU reference in a worker
+    meanwhile), then the fp64 workflows in EX_WORKERS spawned workers
+    sharing the card. Every check is collected and the phase fails at its
+    end if any failed. Returns the launches (K1-K4) summed over the
+    windows."""
+    print(f"[phase 9] the example workflows ({card})")
+    torch.cuda.empty_cache()
+    failures, times = [], {}
+    launches = dict.fromkeys(_WRAPPERS, 0)
+
+    def add(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ProcessPoolExecutor(
+                EX_WORKERS,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+        reference = pool.submit(ex_reference)
+        got, subset = ex_config5(dev, card, failures, times)
+        add(got)
+        t_config5 = time.perf_counter() - t0
+        jobs = {name: pool.submit(_ex_job, name, dev.type, card,
+                                  str(Path(tmp) / name))
+                for name in EXAMPLE_RUNS}
+        if subset is not None:
+            hold_reference(subset, reference.result(), failures)
+        for name, job in jobs.items():
+            try:
+                text, failed, took, got = job.result()
+            except Exception as err:       # a worker that died
+                failures.append(f"{name}: worker failed: {err!r}")
+                continue
+            print(text, end="")
+            failures += failed
+            times.update(took)
+            add(got)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s on the host "
+          f"clock: config 5 {t_config5:.1f} s, then the workers; by window "
+          f"(s, peak GiB; the workers' seconds shared the card and the "
+          f"host with each other): "
+          + "; ".join(f"{k} {t:.1f}, {p:.2f}" for k, (t, p) in times.items()))
+    print(f"  launches in phase 9's windows: {launches}")
+    if failures:
+        raise SmokeFailure("phase 9: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3560,6 +3965,7 @@ def main() -> int:
     launches_bayes = phase_bayes(dev, card)
     launches_mf = phase_matrix_free(dev, card, k1_ms=rows["K1"][1])
     launches_md = phase_multi_device(dev, card)
+    launches_ex = phase_examples(dev, card)
 
     where = {
         "K1": ("gaussian_corr_self", "gp_emu_uqsa_torch/csrc/corr_build.cu",
@@ -3587,6 +3993,9 @@ def main() -> int:
                    "K4 highest": launches_mf["K4"]}
     launches_md = {**launches_md, "K4 high": launches_md["K4"],
                    "K4 highest": launches_md["K4"]}
+    # phase 9 serves with quad_precision "high" only
+    launches_ex = {**launches_ex, "K4 high": launches_ex["K4"],
+                   "K4 highest": 0}
     entries = []
     for key, (name, source, replaces) in where.items():
         err, t, t_wrap, tp, (b, by), lib = rows[key]
@@ -3597,6 +4006,7 @@ def main() -> int:
                         "sampling_launches": launches_bayes[key],
                         "matrix_free_launches": launches_mf[key],
                         "multi_device_launches": launches_md[key],
+                        "examples_launches": launches_ex[key],
                         "max_abs_err": err, "ms": t, "wrapper_ms": t_wrap,
                         "plain_ms": tp, "bound_ms": b, "bound_by": by,
                         "library_ms": lib})

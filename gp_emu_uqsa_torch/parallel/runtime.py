@@ -13,10 +13,12 @@ is not caught: no rank falls back to gloo or to the CPU.
 
 `spawn_ranks` starts N local processes joined by a process group (gloo on
 the CPU in the tests; gloo ranks sharing one card in `chip_smoke.py`) and
-returns what each rank's function returned.
+returns what each rank's function returned. `process_group` is the group
+of a command-line entry point: torchrun's, or one rank of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import queue
@@ -75,6 +77,37 @@ def init_multihost(backend: Optional[str] = None,
     return summary()
 
 
+@contextlib.contextmanager
+def process_group(device_type: Optional[str] = None,
+                  backend: Optional[str] = None):
+    """A process group for the body of the `with`, yielding `summary()`.
+
+    Under `torchrun` (WORLD_SIZE set) it joins torchrun's group
+    (`init_multihost`); in a plain process it makes a group of one rank on
+    a free localhost port (NCCL on the card, gloo on the CPU), so that the
+    SPMD functions run unchanged on one device. A group that exists
+    already is used as it is and left open; a group made here is
+    destroyed on exit.
+    """
+    if dist.is_initialized():
+        yield summary()
+        return
+    dev = resolve_device(device_type)
+    if "WORLD_SIZE" in os.environ:
+        init_multihost(backend, dev.type)
+    else:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        dist.init_process_group(
+            backend or _DEFAULT_BACKEND[dev.type],
+            init_method=f"tcp://localhost:{free_port()}", rank=0,
+            world_size=1, device_id=dev if dev.type == "cuda" else None)
+    try:
+        yield summary()
+    finally:
+        dist.destroy_process_group()
+
+
 def free_port() -> int:
     """A free TCP port on localhost for a process group's store."""
     with socket.socket() as s:
@@ -100,21 +133,21 @@ def _rank_main(rank, world, port, backend, device_type, fn, args, results):
 
 
 def spawn_ranks(fn: Callable, world: int, args: tuple = (), *,
-                backend: str = "gloo", device_type: str = "cpu",
+                backend: str = "gloo", device_type: Optional[str] = None,
                 timeout: float = 600.0) -> list:
     """Run fn(rank, *args) in `world` spawned processes joined by one
     process group on a localhost store; returns the ranks' results in rank
     order. `fn` must be importable by name (the processes are spawned);
     each rank runs torch on one CPU thread.
 
-    With device_type "cuda" every rank uses cuda:0: several ranks share
-    one card, which gloo allows and NCCL refuses. Raises with the failing
-    rank's traceback if a rank fails, as soon as a rank exits without a
-    result, and if the ranks do not finish within `timeout` seconds (then
-    they are killed).
+    device_type follows the port's policy: "cuda" unless the caller asks
+    for "cpu", and "cuda" raises without a card. With "cuda" every rank
+    uses cuda:0: several ranks share one card, which gloo allows and NCCL
+    refuses. Raises with the failing rank's traceback if a rank fails, as
+    soon as a rank exits without a result, and if the ranks do not finish
+    within `timeout` seconds (then they are killed).
     """
-    if device_type == "cuda":
-        resolve_device("cuda")
+    device_type = resolve_device(device_type).type
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()

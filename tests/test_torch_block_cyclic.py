@@ -91,7 +91,7 @@ def _cases(rank):
 
 @pytest.fixture(scope="module")
 def ranks():
-    return spawn_ranks(_cases, WORLD, timeout=300)
+    return spawn_ranks(_cases, WORLD, device_type="cpu", timeout=300)
 
 
 def _case(ranks, name, rank=0):

@@ -259,7 +259,7 @@ def _cases(rank):
 
 @pytest.fixture(scope="module")
 def ranks():
-    return spawn_ranks(_cases, WORLD, timeout=300)
+    return spawn_ranks(_cases, WORLD, device_type="cpu", timeout=300)
 
 
 def _case(ranks, name, rank=0):
@@ -319,6 +319,8 @@ def test_cuda_ranks_and_meshes_raise_without_a_card(monkeypatch):
         make_mesh({"mr": 1})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spawn_ranks(_cases, 1, device_type="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn_ranks(_cases, 1)
 
 
 def _die_unreported(rank):
@@ -331,7 +333,7 @@ def test_spawn_ranks_raises_when_a_rank_dies_without_a_result():
     see the store's host go and report that error instead."""
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError, match="exited without a result"):
-        spawn_ranks(_die_unreported, 1, timeout=120)
+        spawn_ranks(_die_unreported, 1, device_type="cpu", timeout=120)
     assert time.perf_counter() - t0 < 60
 
 

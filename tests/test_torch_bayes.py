@@ -39,8 +39,6 @@ from gp_emu_uqsa_torch.inference import nuts as tnuts
 from gp_emu_uqsa_torch.kernels import params_from_numpy
 from gp_emu_uqsa_torch.utils import load_hmc_state, save_hmc_state
 
-torch.set_num_threads(1)
-
 
 def _np(v):
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)

@@ -22,8 +22,6 @@ from gp_emu_uqsa_torch.ops.block_cyclic import (
 from gp_emu_uqsa_torch.parallel import fit_large, make_mesh, spawn_ranks
 from gp_emu_uqsa_torch.parallel.mesh import gather_rows, traffic
 
-torch.set_num_threads(1)
-
 WORLD = 4
 BLOCK = 32
 SHAPES = [(256, (2, 2)), (200, (4, 1)), (96, (1, 4))]

@@ -19,8 +19,6 @@ from gp_emu_uqsa_tpu.ops.kernel_matrix import gaussian_corr_self_pallas
 
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 
-torch.set_num_threads(1)
-
 T = torch.as_tensor
 SIZES = [1, 63, 64, 65, 300, 513]
 

@@ -19,8 +19,6 @@ from gp_emu_uqsa_torch.kernels import make_params
 from gp_emu_uqsa_torch.multi import MultiEmulator
 import gp_emu_uqsa_torch.sensitivity as s
 
-torch.set_num_threads(1)
-
 
 def _min_dist(x):
     d = np.linalg.norm(x[:, None, :] - x[None, :, :], axis=-1)

@@ -25,8 +25,6 @@ from gp_emu_uqsa_torch.utils.checkpoint import (
     load_emulator as tload, save_emulator as tsave,
 )
 
-torch.set_num_threads(1)
-
 
 def _np(v):
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)

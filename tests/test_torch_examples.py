@@ -54,8 +54,6 @@ from gp_emu_uqsa_torch.examples import (
 )
 from gp_emu_uqsa_torch.inference import lbfgs as tlbfgs
 
-torch.set_num_threads(1)
-
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = ROOT / "examples"
 

@@ -21,8 +21,6 @@ from gp_emu_uqsa_torch import gp as tgp
 from gp_emu_uqsa_torch import kernels as tkernels
 from gp_emu_uqsa_torch.ops import cholesky as tchol
 
-torch.set_num_threads(1)
-
 RTOL = 1e-9
 
 

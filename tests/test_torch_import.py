@@ -14,8 +14,6 @@ import gp_emu_uqsa_torch
 from gp_emu_uqsa_torch import Emulator, load_emulator, make_params, params_from_numpy, save_emulator
 from gp_emu_uqsa_torch.ops import kernel_matrix, serve
 
-torch.set_num_threads(1)
-
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "gp_emu_uqsa_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "gp_emu_uqsa_tpu")

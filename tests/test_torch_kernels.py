@@ -27,8 +27,6 @@ from gp_emu_uqsa_torch.kernels import params_from_numpy
 from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as tserve
 
-torch.set_num_threads(1)
-
 T = torch.as_tensor
 
 

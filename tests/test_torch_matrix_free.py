@@ -50,7 +50,6 @@ from gp_emu_uqsa_torch.ops import cg as tcg
 from gp_emu_uqsa_torch.ops import slq as tslq
 from gp_emu_uqsa_torch.ops.precision import fp32_exact
 
-torch.set_num_threads(1)
 EPS32 = 2.0 ** -24
 
 

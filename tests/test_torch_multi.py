@@ -30,8 +30,6 @@ from gp_emu_uqsa_torch.inference.lbfgs import (
 from gp_emu_uqsa_torch.kernels import GPParams, params_from_numpy
 from gp_emu_uqsa_torch.multi import MultiEmulator
 
-torch.set_num_threads(1)
-
 TRIES = 3
 NUGGET = 1e-6
 # the L-BFGS cap of both packages: the 1e-8 gradient stop of the default

@@ -37,8 +37,6 @@ from gp_emu_uqsa_torch.basis import basis_matrix, linear_basis
 from gp_emu_uqsa_torch.inference import lbfgs as tlbfgs
 from gp_emu_uqsa_torch.kernels import GPParams as TParams
 
-torch.set_num_threads(1)
-
 
 def _hetero_data(n=150, seed=0):
     """tests/test_noise_fit.py's 1-D function, noise sd 0.02 -> 0.4."""

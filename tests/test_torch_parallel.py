@@ -32,8 +32,6 @@ from gp_emu_uqsa_torch.parallel.mesh import (
     gather_rows, padded_rows, shard_rows, traffic,
 )
 
-torch.set_num_threads(1)
-
 WORLD = 4
 F64 = torch.float64
 # L-BFGS iterations of the mle_fit case, on both sides (the default 200

@@ -24,8 +24,6 @@ from gp_emu_uqsa_torch.inference.hmc import HMCConfig, rank_generator
 from gp_emu_uqsa_torch.parallel import make_mesh, spawn_ranks
 from gp_emu_uqsa_torch.parallel.mesh import all_gather, axis_group, group_of
 
-torch.set_num_threads(1)
-
 WORLD = 4
 PER_RANK = 4
 CHAINS = WORLD * PER_RANK

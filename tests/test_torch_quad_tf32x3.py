@@ -22,8 +22,6 @@ from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as tserve
 from gp_emu_uqsa_torch.tools import k4_high_variants
 
-torch.set_num_threads(1)
-
 T = torch.as_tensor
 QUAD_HIGH_BUDGET = 4.7e-5          # docs/numerics.md, "high" tier on quad
 # Half a TF32 step among the subnormals (2^-149 * 2^13 / 2): below 2^-103 the

@@ -28,8 +28,6 @@ from gp_emu_uqsa_torch.ops import _build
 from gp_emu_uqsa_torch.ops import serve as tserve
 from gp_emu_uqsa_torch.tools import cuda_core_variants
 
-torch.set_num_threads(1)
-
 T = torch.as_tensor
 MEAN_BUDGET = 1e-4
 

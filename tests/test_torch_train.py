@@ -35,8 +35,6 @@ from gp_emu_uqsa_torch.ops import kernel_matrix as tkm
 
 import oracle
 
-torch.set_num_threads(1)
-
 
 def _np(v):
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)

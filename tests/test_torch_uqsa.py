@@ -36,8 +36,6 @@ from gp_emu_uqsa_torch.sensitivity import Sensitivity as TSens
 import gp_emu_uqsa_torch.sensitivity as tsens_mod
 from gp_emu_uqsa_torch.tools import uqsa_forms
 
-torch.set_num_threads(1)
-
 RTOL = 1e-9
 N, D = 26, 3
 NUGGET = 1e-6

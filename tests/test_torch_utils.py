@@ -9,6 +9,7 @@ tests/test_utils.py's bounds. utils/roofline.py: the H100 roofs by card
 name.
 """
 import json
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -27,8 +28,6 @@ from gp_emu_uqsa_torch.kernels import GPParams as TParams
 from gp_emu_uqsa_torch.kernels import make_params as tparams
 from gp_emu_uqsa_torch.utils import logging as tlog
 from gp_emu_uqsa_torch.utils import roofline, sanitize as tsan, timing
-
-torch.set_num_threads(1)
 
 
 def _problem(n=30, d=2, seed=0):
@@ -148,22 +147,25 @@ def test_profiler_trace_writes_a_trace(tmp_path):
         pass
 
 
-def test_adaptive_timed_scales_reps():
+def test_adaptive_timed_scales_reps(monkeypatch):
     """tests/test_utils.py's check: a fixed per-sync cost is amortized by
-    scaling the reps, and the estimate lands within 2x of the op's time."""
-    import time as _time
-
+    scaling the reps, and the estimate lands within 2x of the op's time.
+    The op and the sync advance a clock of the test's own, so a loaded
+    machine's late wake-ups from `time.sleep` cannot move the estimate."""
     op_s = 2e-4
     sync_s = 5e-3
     calls = {"n": 0}
+    clock = {"s": 0.0}
+    monkeypatch.setattr(timing, "time",
+                        types.SimpleNamespace(perf_counter=lambda: clock["s"]))
 
     def fn():
         calls["n"] += 1
-        _time.sleep(op_s)
+        clock["s"] += op_s
         return object()
 
     def sync(_):
-        _time.sleep(sync_s)
+        clock["s"] += sync_s
 
     est = timing.timed(fn, sync, min_total_s=0.05, max_reps=4096)
     assert 0.5 * op_s < est < 2.0 * op_s, est

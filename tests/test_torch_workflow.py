@@ -24,8 +24,6 @@ import gp_emu_uqsa_torch as tg
 from gp_emu_uqsa_torch import gp as tgp
 from gp_emu_uqsa_torch.configs import Beliefs
 
-torch.set_num_threads(1)
-
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 
 

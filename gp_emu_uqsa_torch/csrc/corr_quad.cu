@@ -54,52 +54,84 @@
 // dropped: about 2^-21 relative per product. The tensor cores ignore the
 // low 13 mantissa bits of an fp32 operand, so hi must be rounded before lo
 // is formed. Bound on the card: the 3 m n (n + 1) operations at the dense
-// TF32 rate. Design:
+// TF32 rate. Two kinds of work share each SM: the products and the rebuild
+// of c(x*, X) on the CUDA cores (fp32 differences, expf, the split: about
+// 2d + 15 instructions an entry), which is repeated for every k tile that
+// meets an entry. On an H100 at its 700 W limit the body draws the whole
+// limit in every form tried (SM clock 1.6-1.8 GHz of 1.98), so time follows
+// energy: the rebuild costs the same on the consumers' warps or on warps of
+// its own (tools/k4_high_variants.py). The design gives the rebuild its own
+// warps and a ring in shared memory, and uses that ring to rebuild each c
+// tile once for two k tiles. Design:
 //  - summation: the tensor cores add into their fp32 accumulators without
 //    rounding to nearest, and over a whole j sweep (up to n / 8 k8 steps
 //    into one accumulator) that bias grew to 4e-2 absolute on quad at
 //    n = 16384 on an H100, against the tier's budget of 4.7e-5
-//    (docs/numerics.md). So the tensor cores sum only kFoldStages stages
-//    (16 k8 steps, 48 products of 3 passes) into a register partial, and
-//    the CUDA cores add each partial into y in fp32 (two-level summation,
-//    as the "highest" body does);
+//    (docs/numerics.md). So the tensor cores sum at most 4 k8 steps (12
+//    products of 3 passes) into a register partial, and the CUDA cores add
+//    each partial into y in fp32 (two-level summation, as the "highest"
+//    body does). The two k tiles of a pass share the partial, so each folds
+//    after every stage (kFoldStages applies to one k tile a pass);
 //  - layout: wgmma takes TF32 operands K-major only, and here K = j. B is
 //    W(k, j), row-major, so TMA boxes of 128 k-rows x 32 j-columns (128
-//    bytes a row, 128-byte swizzle) are K-major as they stand. A is the
-//    correlation tile; each consumer thread rebuilds the entries of its
-//    m64n128k8 A fragments in registers (fp32 differences, FMAs, expf, the
-//    split), so c never touches shared memory;
-//  - tiles: a block is two consumer warpgroups of 64 queries each (128
-//    queries) and a producer warpgroup. A k tile is 128 factor rows (the
-//    wgmma N): the register partial (64 fp32 a thread) and the A fragments
-//    of two stages (64 registers) fill the consumers' registers, and y for
-//    64 queries x 128 rows lives in shared memory (64 KB for the block,
-//    each thread's values 256 floats apart, conflict-free). A rebuilt
-//    entry of c feeds 3 x 128 tensor-core products; 256 rows would halve
-//    the rebuild but needs 128 more registers a thread for the partial;
-//  - pipeline: the j sweep runs through a ring of 4 shared-memory stages
-//    (W_hi, W_lo and the 32 training points' coordinates: 34.5 KB a
-//    stage), filled by one TMA thread and handed over with mbarriers. The
-//    producer warpgroup hands registers to the consumers (setmaxnreg). A
-//    consumer warpgroup issues a stage's 12 products as one wgmma group
-//    and rebuilds the next stage's A fragments while they run;
+//    bytes a row, 128-byte swizzle) are K-major as they stand. A, the
+//    correlation tile, is written by the rebuild warps into shared memory
+//    in the same layout (a warpgroup's 64 rows x 32 columns, 128 bytes a
+//    row, 16-byte unit u of row i at u ^ (i % 8)), and both operands are
+//    read by descriptor (sw128_desc);
+//  - warps: two consumer warpgroups of 64 queries each (128 queries), one
+//    rebuild warpgroup and a producer warpgroup, in which one thread issues
+//    the TMA copies and the rest give their registers away. A rebuild
+//    thread owns one query and the stage's 32 columns, 16 at a time: it
+//    reads the coordinates as broadcasts, sums the d squared differences,
+//    takes expf and the split, and stores 16-byte units to the c ring (a
+//    quarter-warp's 8 rows land in distinct banks). A consumer warpgroup
+//    waits for a stage, then for each k tile of the pass issues its 12
+//    products as one wgmma group, waits for them and folds;
+//  - passes: k tiles run in pairs (kPairK), t and t + 1 over one j sweep:
+//    each stage brings W_hi, W_lo of both tiles and one rebuilt c tile that
+//    feeds both, which halves the rebuild (a c entry now feeds 6 x 128
+//    products). The sweep stops at the pair's last row; stages past the
+//    first tile's last row carry the second tile alone;
+//  - rings: W (W_hi, W_lo of the pass's two k tiles and the 32 training
+//    points' coordinates: 66.5 KB a stage, 2 stages), filled by the TMA
+//    thread; c (c_hi, c_lo for 128 queries: 32 KB a stage, 2 stages),
+//    filled by the rebuild warps. Each stage is handed over with full and
+//    empty mbarriers; the rebuild warps fence their stores to the async
+//    proxy before they arrive;
+//  - budgets: shared memory 128 KB (W) + 64 KB (c) + 5 KB (coordinates)
+//    + 10 KB (queries) = 208 KB of 227. Registers: ptxas gives 128 a
+//    thread at launch (512 threads), and setmaxnreg.inc takes only what
+//    other warps of the block give back, so the budget balances exactly:
+//    216 a consumer thread (the partial and y of both k tiles, 64 fp32
+//    each, in registers), 56 a rebuild thread, 24 a producer thread:
+//    256 x 216 + 128 x 56 + 128 x 24 = 64 K. The launcher refuses to run
+//    if ptxas's count is not the 128 this assumes (setmaxnreg.inc would
+//    wait for ever);
+//  - tiles: the query tile stays at 128. Both consumer warpgroups read the
+//    same W boxes from shared memory, and each query tile re-reads the
+//    lower triangles of W_hi and W_lo from L2 (4 n^2 bytes): 64 queries
+//    would double that traffic. A wider k tile in one warpgroup would need
+//    a second partial, which the registers do not hold;
+//  - ptxas: the body builds without the "wgmma.mma_async instructions are
+//    serialized" advisory and without spills, as did the one before it
+//    (tools/k4_high_variants.ptxas_report prints the advisory when
+//    present); the accumulators are touched only after wait_group 0;
 //  - W is split once per call in device memory (tf32_split_kernel, one
 //    pass: 2 n^2 bytes read, 8 n^2 bytes written), which also zeroes the
 //    strict upper triangle and the padding, so the diagonal tile needs no
 //    mask and entries beyond n arrive as zeros (TMA fills out-of-range
-//    boxes with zeros). Every query tile of 128 re-reads the lower
-//    triangles of W_hi and W_lo (4 n^2 bytes); blocks walk the same (k, j)
-//    order, so co-resident blocks meet the same tiles in the 50 MB L2;
-//  - triangle: k tiles run in order and j stops at the tile's last row;
-//  - epilogue: after each k tile, y^2 is summed across the tile's 128
-//    columns into two per-thread row sums; a 4-lane shuffle finishes each
-//    query's sum and quad (m,) is written directly, with no atomics.
+//    boxes with zeros). Blocks walk the same (k, j) order, so co-resident
+//    blocks meet the same tiles in the 50 MB L2;
+//  - epilogue: after each pass, y^2 is summed across each tile's 128
+//    columns, tile by tile, into two per-thread row sums; a 4-lane shuffle
+//    finishes each query's sum and quad (m,) is written directly, with no
+//    atomics.
 #include <cuda.h>   // CUtensorMap and its enums; the driver entry point is
                     // fetched at run time, so nothing links against libcuda
 
 #include <algorithm>
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -372,21 +404,47 @@ constexpr int kTileK = 128;                    // factor rows per k tile (wgmma 
 constexpr int kAcc = kTileK / 2;               // fp32 accumulators a thread
 constexpr int kChunkJ = 32;                    // factor columns per stage
 constexpr int kSteps = kChunkJ / 8;            // wgmma k8 steps per stage
-constexpr int kStages = 4;
-constexpr int kFoldStages = 4;                // stages a partial sums on the tensor cores
+constexpr int kPairK = 2;                      // k tiles that share each rebuilt c stage
+constexpr int kStages = 4 / kPairK;            // W ring
+constexpr int kCStages = 2;                    // c ring
+// stages a partial sums on the tensor cores with one k tile a pass; two k
+// tiles share the partial, so they fold after every stage
+constexpr int kFoldStages = 4;
+constexpr int kRebuildPass = 16;               // c entries a rebuild thread holds at once
 constexpr int kConsumerWarps = 4 * kWarpgroups;
-constexpr int kThreads = 32 * kConsumerWarps + 128;  // + a producer warpgroup
-// registers a thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 64 K
-constexpr int kConsumerRegs = 232;
-constexpr int kProducerRegs = 40;
-constexpr int kWTile = kTileK * kChunkJ;       // floats in one W box
-constexpr int kTTile = gpemu::kMaxD * kChunkJ; // floats in one coordinate box
-constexpr int kAlign = 1024;                   // 128-byte swizzle atom
+constexpr int kRebuildWarps = 4;               // one warpgroup, a thread a query
 constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kRebuilders = 32 * kRebuildWarps;
+constexpr int kThreads = kConsumers + kRebuilders + 128;   // + a producer warpgroup
+// Registers: ptxas gives every thread kLaunchRegs (the register file over
+// the block's threads), and setmaxnreg.inc takes only what other warps of
+// the block give back with setmaxnreg.dec: what the consumers take above
+// kLaunchRegs, the producer and rebuild warpgroups give back below it. The
+// launcher checks kLaunchRegs against the built kernel's count.
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+constexpr int kProducerRegs = 24;
+constexpr int kRebuildRegs = 56;
+constexpr int kConsumerRegs =
+    kLaunchRegs + (128 * (kLaunchRegs - kProducerRegs) +
+                   kRebuilders * (kLaunchRegs - kRebuildRegs)) / kConsumers / 8 * 8;
+// the partial and y of each k tile of a pass, 64 fp32 each, and the rest
+static_assert(kConsumerRegs >= (kPairK + 1) * kAcc + 24 && kConsumerRegs <= 256 &&
+              kRebuildRegs <= kLaunchRegs && kRebuilders == kTileQ &&
+              kChunkJ % kRebuildPass == 0 &&
+              128 * kProducerRegs + kRebuilders * kRebuildRegs +
+                      kConsumers * kConsumerRegs <= 65536,
+              "register budget");
+constexpr int kWTile = kTileK * kChunkJ;       // floats in one W box
+constexpr int kWStage = 2 * kPairK * kWTile;   // W_hi, W_lo of each k tile of a pass
+constexpr int kTTile = gpemu::kMaxD * kChunkJ; // floats in one coordinate box
+constexpr int kCTile = 64 * kChunkJ;           // floats in one warpgroup's A tile
+constexpr int kCStage = 2 * kWarpgroups * kCTile;  // c_hi, c_lo of all queries
+constexpr int kAlign = 1024;                   // 128-byte swizzle atom
 constexpr size_t kSmemBytes =
-    kAlign + sizeof(float) * (2 * kStages * kWTile + kStages * kTTile +
-                              kAcc * kConsumers + gpemu::kMaxD * kTileQ) +
-    2 * kStages * sizeof(uint64_t);
+    kAlign + sizeof(float) * (kStages * kWStage + kCStages * kCStage +
+                              kStages * kTTile + gpemu::kMaxD * kTileQ) +
+    2 * (kStages + kCStages) * sizeof(uint64_t);
+static_assert(kSmemBytes <= 232448, "shared memory");
 }  // namespace tc
 
 // fp32 -> TF32 rounded to nearest, ties away from zero (cvt.rna.tf32.f32
@@ -456,8 +514,15 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most `pending` of this warp's wgmma groups are in flight
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending) : "memory");
+}
+// orders this thread's generic-proxy writes to shared memory before later
+// reads by the async proxy (wgmma operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma window
@@ -466,16 +531,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[tc::kAcc]) {
   for (int i = 0; i < tc::kAcc; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// d(64 x 128) (+)= A(64 x 8, registers) * B(8 x 128, shared memory), TF32
-// inputs, fp32 accumulators; scale_d = 0 overwrites d
+// d(64 x 128) (+)= A(64 x 8) * B(8 x 128), both K-major in shared memory
+// (sw128_desc), TF32 inputs, fp32 accumulators; scale_d = 0 overwrites d
 __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[tc::kAcc],
-                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_a,
                                                      uint64_t desc_b,
                                                      int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
+      "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -485,7 +550,7 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[tc::kAcc],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "%64, %65, p, 1, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -503,8 +568,7 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[tc::kAcc],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // W (n x n, row-major) -> hi, lo (n x ld): TF32 split of the lower
@@ -529,44 +593,22 @@ __global__ void tf32_split_kernel(const float* __restrict__ w,
   }
 }
 
-// The A fragments of one stage's kSteps k8 steps: c(i, j) for rows `row`
-// and `row + 8` of the warpgroup's queries and, in step s, columns
-// j = 8 s + col and 8 s + col + 4 of the stage (st: its training points,
-// [l][j]), split into TF32 hi and lo. Fragment order: (row, j),
-// (row + 8, j), (row, j + 4), (row + 8, j + 4).
-__device__ __forceinline__ void rebuild_a(const float* q_a, const float* q_b,
-                                          const float* st, int col, int d,
-                                          uint32_t (&hi)[tc::kSteps][4],
-                                          uint32_t (&lo)[tc::kSteps][4]) {
-  float d2[tc::kSteps][4];
+// The pass whose k tiles start at rows k0, k0 + kTileK, ... (none past n):
+// the stages (32-column chunks) each tile sweeps, and the pass's. W(k, j) = 0
+// for j > k, so a k tile stops at its last row
+struct Pass {
+  int chunks[tc::kPairK], stages;
+};
+__device__ __forceinline__ Pass pass_of(int k0, int n) {
+  Pass p;
+  p.stages = 0;
 #pragma unroll
-  for (int s = 0; s < tc::kSteps; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d2[s][i] = 0.f;
-  for (int l = 0; l < d; ++l) {
-    const float qa = q_a[l * tc::kTileQ], qb = q_b[l * tc::kTileQ];
-    const float* tl = st + l * tc::kChunkJ + col;
-#pragma unroll
-    for (int s = 0; s < tc::kSteps; ++s) {
-      const float ta = tl[8 * s], tb = tl[8 * s + 4];
-      float u = qa - ta;
-      d2[s][0] = fmaf(u, u, d2[s][0]);
-      u = qb - ta;
-      d2[s][1] = fmaf(u, u, d2[s][1]);
-      u = qa - tb;
-      d2[s][2] = fmaf(u, u, d2[s][2]);
-      u = qb - tb;
-      d2[s][3] = fmaf(u, u, d2[s][3]);
-    }
+  for (int h = 0; h < tc::kPairK; ++h) {
+    const int kh = k0 + h * tc::kTileK;
+    p.chunks[h] = kh < n ? (min(n, kh + tc::kTileK) + tc::kChunkJ - 1) / tc::kChunkJ : 0;
+    p.stages = max(p.stages, p.chunks[h]);
   }
-#pragma unroll
-  for (int s = 0; s < tc::kSteps; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float c = expf(-d2[s][i]);
-      hi[s][i] = tf32_rna(c);
-      lo[s][i] = tf32_rna(c - __uint_as_float(hi[s][i]));
-    }
+  return p;
 }
 
 __global__ void __launch_bounds__(tc::kThreads, 1)
@@ -578,12 +620,14 @@ corr_quad_tf32x3_kernel(const __grid_constant__ CUtensorMap w_hi_map,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((tc::kAlign - (smem_addr(smem_raw) & (tc::kAlign - 1))) & (tc::kAlign - 1));
-  float* s_w = reinterpret_cast<float*>(base);   // [stage][hi, lo][k][j]
-  float* s_t = s_w + 2 * tc::kStages * tc::kWTile;       // [stage][l][j]
-  float* s_y = s_t + tc::kStages * tc::kTTile;           // [i][consumer]
-  float* s_q = s_y + tc::kAcc * tc::kConsumers;          // [l][query]
+  float* s_w = reinterpret_cast<float*>(base);   // [stage][k tile][hi, lo][k][j]
+  float* s_c = s_w + tc::kStages * tc::kWStage;          // [stage][hi, lo][wg][i][j]
+  float* s_t = s_c + tc::kCStages * tc::kCStage;         // [stage][l][j]
+  float* s_q = s_t + tc::kStages * tc::kTTile;           // [l][query]
   uint64_t* full = reinterpret_cast<uint64_t*>(s_q + gpemu::kMaxD * tc::kTileQ);
   uint64_t* empty = full + tc::kStages;
+  uint64_t* c_full = empty + tc::kStages;
+  uint64_t* c_empty = c_full + tc::kCStages;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * tc::kTileQ;
@@ -591,6 +635,10 @@ corr_quad_tf32x3_kernel(const __grid_constant__ CUtensorMap w_hi_map,
     for (int s = 0; s < tc::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], tc::kConsumerWarps);
+    }
+    for (int s = 0; s < tc::kCStages; ++s) {
+      mbar_init(&c_full[s], tc::kRebuildWarps);
+      mbar_init(&c_empty[s], tc::kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -603,125 +651,201 @@ corr_quad_tf32x3_kernel(const __grid_constant__ CUtensorMap w_hi_map,
 
   const int warp = tid / 32;
   const int lane = tid % 32;
-  if (warp >= tc::kConsumerWarps) {
-    // producer warpgroup: gives up registers; one thread keeps the ring of
-    // stages filled
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(tc::kProducerRegs));
-    if (warp == tc::kConsumerWarps && lane == 0) {
-      const uint32_t tx_bytes = sizeof(float) * (2 * tc::kWTile + d * tc::kChunkJ);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int k0 = 0; k0 < n; k0 += tc::kTileK) {
-        const int j_end = min(n, k0 + tc::kTileK);
-        for (int j0 = 0; j0 < j_end; j0 += tc::kChunkJ) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], tx_bytes);
-          tma_load_2d(s_w + (2 * stage) * tc::kWTile, &w_hi_map, &full[stage], j0, k0);
-          tma_load_2d(s_w + (2 * stage + 1) * tc::kWTile, &w_lo_map, &full[stage], j0, k0);
-          tma_load_2d(s_t + stage * tc::kTTile, &t_map, &full[stage], j0, 0);
-          if (++stage == tc::kStages) {
-            stage = 0;
-            phase ^= 1;
+  if (warp < tc::kConsumerWarps) {
+    // consumers: warpgroup wg owns queries 64 wg .. 64 wg + 63 and only
+    // issues the products and folds. In the m64n128k8 accumulators a
+    // thread holds rows `row` and `row + 8`, two columns of every 8.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(tc::kConsumerRegs));
+    const int wg = warp / 4;
+    const int row = wg * 64 + (warp % 4) * 16 + lane / 4;
+    const int col = lane % 4;
+    float part[tc::kAcc];          // products not yet folded, tensor cores
+    float y[tc::kPairK][tc::kAcc]; // y(i, k) for the pass's k tiles, fp32
+#pragma unroll
+    for (int i = 0; i < tc::kAcc; ++i) part[i] = 0.f;
+    float sum_a = 0.f, sum_b = 0.f;
+    int stage = 0, cs = 0;
+    uint32_t phase = 0, c_phase = 0;
+    for (int k0 = 0; k0 < n; k0 += tc::kPairK * tc::kTileK) {
+      const Pass ps = pass_of(k0, n);
+#pragma unroll
+      for (int h = 0; h < tc::kPairK; ++h)
+#pragma unroll
+        for (int i = 0; i < tc::kAcc; ++i) y[h][i] = 0.f;
+      for (int c = 0; c < ps.stages; ++c) {
+        mbar_wait(&full[stage], phase);
+        mbar_wait(&c_full[cs], c_phase);
+        const float* c_hi = s_c + cs * tc::kCStage + wg * tc::kCTile;
+        const uint64_t da_hi = sw128_desc(c_hi);
+        const uint64_t da_lo = sw128_desc(c_hi + tc::kWarpgroups * tc::kCTile);
+        // each k tile of the pass in turn on the same c: its 3 x kSteps
+        // products in one wgmma group, then (at a fold) the partial into y
+#pragma unroll
+        for (int h = 0; h < tc::kPairK; ++h) {
+          if (c >= ps.chunks[h]) continue;
+          const float* w_hi = s_w + stage * tc::kWStage + 2 * h * tc::kWTile;
+          const uint64_t db_hi = sw128_desc(w_hi);
+          const uint64_t db_lo = sw128_desc(w_hi + tc::kWTile);
+          const bool first = tc::kPairK > 1 || c % tc::kFoldStages == 0;
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < tc::kSteps; ++s) {
+            // step s starts 8 columns (32 bytes, 2 descriptor units)
+            // further into the swizzled rows
+            const uint64_t koff = 2 * s;
+            wgmma_m64n128k8_tf32(part, da_hi + koff, db_hi + koff, s > 0 || !first);
+            wgmma_m64n128k8_tf32(part, da_hi + koff, db_lo + koff, 1);
+            wgmma_m64n128k8_tf32(part, da_lo + koff, db_hi + koff, 1);
           }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(part);
+          if (tc::kPairK > 1 || c % tc::kFoldStages == tc::kFoldStages - 1 ||
+              c + 1 == ps.chunks[h]) {
+#pragma unroll
+            for (int i = 0; i < tc::kAcc; ++i) y[h][i] += part[i];
+          }
+        }
+        // this warp's products on the stage are done: hand its slots back
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&empty[stage]);
+          mbar_arrive(&c_empty[cs]);
+        }
+        if (++stage == tc::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (++cs == tc::kCStages) {
+          cs = 0;
+          c_phase ^= 1;
+        }
+      }
+      // y columns 8 g + 2 col + {0, 1}: y[4 g], y[4 g + 1] on row,
+      // y[4 g + 2], y[4 g + 3] on row + 8; k tile by k tile
+#pragma unroll
+      for (int h = 0; h < tc::kPairK; ++h)
+#pragma unroll
+        for (int g8 = 0; g8 < tc::kAcc / 4; ++g8) {
+          sum_a = fmaf(y[h][4 * g8], y[h][4 * g8], sum_a);
+          sum_a = fmaf(y[h][4 * g8 + 1], y[h][4 * g8 + 1], sum_a);
+          sum_b = fmaf(y[h][4 * g8 + 2], y[h][4 * g8 + 2], sum_b);
+          sum_b = fmaf(y[h][4 * g8 + 3], y[h][4 * g8 + 3], sum_b);
+        }
+    }
+    // the 4 lanes that share a row hold its k tiles' columns between them
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
+    }
+    if (col == 0) {
+      if (q0 + row < m) quad[q0 + row] = sum_a;
+      if (q0 + row + 8 < m) quad[q0 + row + 8] = sum_b;
+    }
+  } else if (warp < tc::kConsumerWarps + tc::kRebuildWarps) {
+    // rebuild warps: c(i, j) of each stage, split into TF32 hi and lo, into
+    // the c ring. Thread qi owns query qi (consecutive across a warp) and
+    // the stage's 32 columns, kRebuildPass at a time. Its row of the
+    // warpgroup's A tile is 128 bytes (K-major); the 128-byte swizzle puts
+    // 16-byte unit u at u ^ (qi % 8), so the 8 rows of a quarter-warp store
+    // to distinct banks.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(tc::kRebuildRegs));
+    const int qi = tid - tc::kConsumers;
+    const int swz = qi % 8;
+    const float* q = s_q + qi;
+    float* c_row = s_c + (qi / 64) * tc::kCTile + (qi % 64) * tc::kChunkJ;
+    int stage = 0, cs = 0;
+    uint32_t phase = 0, c_phase = 0;
+    for (int k0 = 0; k0 < n; k0 += tc::kPairK * tc::kTileK) {
+      const int stages = pass_of(k0, n).stages;
+      for (int c = 0; c < stages; ++c) {
+        mbar_wait(&full[stage], phase);
+        mbar_wait(&c_empty[cs], c_phase ^ 1);
+        float* hi_row = c_row + cs * tc::kCStage;
+        float* lo_row = hi_row + tc::kWarpgroups * tc::kCTile;
+        // one pass at a time: unrolled, the passes interleave and spill
+#pragma unroll 1
+        for (int u1 = 0; u1 < tc::kChunkJ / 4; u1 += tc::kRebuildPass / 4) {
+          const float* st = s_t + stage * tc::kTTile + 4 * u1;
+          float d2[tc::kRebuildPass];
+#pragma unroll
+          for (int jj = 0; jj < tc::kRebuildPass; ++jj) d2[jj] = 0.f;
+          for (int l = 0; l < d; ++l) {
+            const float qv = q[l * tc::kTileQ];
+            const float4* t4 = reinterpret_cast<const float4*>(st + l * tc::kChunkJ);
+#pragma unroll
+            for (int v = 0; v < tc::kRebuildPass / 4; ++v) {
+              const float4 t = t4[v];
+              float u = qv - t.x;
+              d2[4 * v] = fmaf(u, u, d2[4 * v]);
+              u = qv - t.y;
+              d2[4 * v + 1] = fmaf(u, u, d2[4 * v + 1]);
+              u = qv - t.z;
+              d2[4 * v + 2] = fmaf(u, u, d2[4 * v + 2]);
+              u = qv - t.w;
+              d2[4 * v + 3] = fmaf(u, u, d2[4 * v + 3]);
+            }
+          }
+#pragma unroll
+          for (int v = 0; v < tc::kRebuildPass / 4; ++v) {
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float c = expf(-d2[4 * v + e]);
+              hi[e] = tf32_rna(c);
+              lo[e] = tf32_rna(c - __uint_as_float(hi[e]));
+            }
+            const int at = 4 * ((u1 + v) ^ swz);
+            *reinterpret_cast<uint4*>(hi_row + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+            *reinterpret_cast<uint4*>(lo_row + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&c_full[cs]);
+        if (++stage == tc::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (++cs == tc::kCStages) {
+          cs = 0;
+          c_phase ^= 1;
         }
       }
     }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(tc::kConsumerRegs));
-  // consumers: warpgroup wg owns queries 64 wg .. 64 wg + 63. In the
-  // m64n128k8 fragments a thread holds rows `row` and `row + 8` (A: columns
-  // col and col + 4 of each k8 step; y: two columns of every 8).
-  const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
-  const int col = lane % 4;
-  const float* q_a = s_q + row;
-  const float* q_b = s_q + row + 8;
-  float part[tc::kAcc];    // kFoldStages stages' products, tensor cores
+  } else {
+    // producer warpgroup: gives up registers; one thread keeps the W ring
+    // filled: each stage the W_hi, W_lo boxes of the pass's k tiles that
+    // still sweep, and the 32 training points' coordinates
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(tc::kProducerRegs));
+    if (warp != tc::kConsumerWarps + tc::kRebuildWarps || lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int k0 = 0; k0 < n; k0 += tc::kPairK * tc::kTileK) {
+      const Pass ps = pass_of(k0, n);
+      for (int c = 0; c < ps.stages; ++c) {
+        const int j0 = c * tc::kChunkJ;
+        int tiles = 0;
 #pragma unroll
-  for (int i = 0; i < tc::kAcc; ++i) part[i] = 0.f;
-  // y(i, k) for the k tile, summed on the CUDA cores: this thread's kAcc
-  // values, tid apart (conflict-free)
-  float* y = s_y + tid;
-  float sum_a = 0.f, sum_b = 0.f;
-  // A fragments of two stages: the next stage's are rebuilt in one set
-  // while the products of this stage, which read the other, run
-  uint32_t a_hi[2][tc::kSteps][4], a_lo[2][tc::kSteps][4];
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int k0 = 0; k0 < n; k0 += tc::kTileK) {
-    const int j_end = min(n, k0 + tc::kTileK);   // W(k, j) = 0 for j > k
-    const int chunks = (j_end + tc::kChunkJ - 1) / tc::kChunkJ;
+        for (int h = 0; h < tc::kPairK; ++h) tiles += c < ps.chunks[h];
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage],
+                       sizeof(float) * (2 * tiles * tc::kWTile + d * tc::kChunkJ));
 #pragma unroll
-    for (int i = 0; i < tc::kAcc; ++i) y[i * tc::kConsumers] = 0.f;
-    mbar_wait(&full[stage], phase);
-    rebuild_a(q_a, q_b, s_t + stage * tc::kTTile, col, d, a_hi[0], a_lo[0]);
-    // one stage: its 3 x kSteps products in one wgmma group, the next
-    // stage's rebuild while they run; every kFoldStages stages (and at the
-    // k tile's last) the tensor-core partial folds into y
-    auto run_stage = [&](auto buf, int c) {
-      constexpr int b = decltype(buf)::value;   // c % 2
-      const uint64_t desc_hi = sw128_desc(s_w + (2 * stage) * tc::kWTile);
-      const uint64_t desc_lo = sw128_desc(s_w + (2 * stage + 1) * tc::kWTile);
-      fence_regs(part);
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < tc::kSteps; ++s) {
-        // step s starts 8 columns (32 bytes, 2 descriptor units) further
-        // into the swizzled rows
-        const uint64_t koff = 2 * s;
-        wgmma_m64n128k8_tf32(part, a_hi[b][s], desc_hi + koff,
-                             s > 0 || c % tc::kFoldStages != 0);
-        wgmma_m64n128k8_tf32(part, a_hi[b][s], desc_lo + koff, 1);
-        wgmma_m64n128k8_tf32(part, a_lo[b][s], desc_hi + koff, 1);
+        for (int h = 0; h < tc::kPairK; ++h) {
+          if (c >= ps.chunks[h]) continue;
+          float* w_hi = s_w + stage * tc::kWStage + 2 * h * tc::kWTile;
+          tma_load_2d(w_hi, &w_hi_map, &full[stage], j0, k0 + h * tc::kTileK);
+          tma_load_2d(w_hi + tc::kWTile, &w_lo_map, &full[stage], j0, k0 + h * tc::kTileK);
+        }
+        tma_load_2d(s_t + stage * tc::kTTile, &t_map, &full[stage], j0, 0);
+        if (++stage == tc::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      wgmma_commit();
-      const int next = stage + 1 == tc::kStages ? 0 : stage + 1;
-      const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
-      if (c + 1 < chunks) {
-        mbar_wait(&full[next], next_phase);
-        rebuild_a(q_a, q_b, s_t + next * tc::kTTile, col, d, a_hi[1 - b],
-                  a_lo[1 - b]);
-      }
-      wgmma_wait_all();
-      fence_regs(part);
-      // this warp's products on the stage are done: hand it back
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);
-      stage = next;
-      phase = next_phase;
-      if (c % tc::kFoldStages == tc::kFoldStages - 1 || c + 1 == chunks) {
-#pragma unroll
-        for (int i = 0; i < tc::kAcc; ++i) y[i * tc::kConsumers] += part[i];
-      }
-    };
-    for (int c = 0; c < chunks; c += 2) {
-      run_stage(std::integral_constant<int, 0>{}, c);
-      if (c + 1 < chunks) run_stage(std::integral_constant<int, 1>{}, c + 1);
     }
-    // y columns 8 g + 2 col + {0, 1}: y[4 g], y[4 g + 1] on row,
-    // y[4 g + 2], y[4 g + 3] on row + 8
-#pragma unroll
-    for (int g8 = 0; g8 < tc::kAcc / 4; ++g8) {
-      float v = y[(4 * g8) * tc::kConsumers];
-      sum_a = fmaf(v, v, sum_a);
-      v = y[(4 * g8 + 1) * tc::kConsumers];
-      sum_a = fmaf(v, v, sum_a);
-      v = y[(4 * g8 + 2) * tc::kConsumers];
-      sum_b = fmaf(v, v, sum_b);
-      v = y[(4 * g8 + 3) * tc::kConsumers];
-      sum_b = fmaf(v, v, sum_b);
-    }
-  }
-  // the 4 lanes that share a row hold its k tile's columns between them
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
-    sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
-  }
-  if (col == 0) {
-    if (q0 + row < m) quad[q0 + row] = sum_a;
-    if (q0 + row + 8 < m) quad[q0 + row + 8] = sum_b;
   }
 }
 
@@ -824,6 +948,13 @@ extern "C" int gp_corr_quad_tf32x3(const float* xs, const float* xt_t,
       !make_map(encode, &t_map, xt_t, d, n, ld, d, tc::kChunkJ,
                 CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the register budget of the warp roles assumes ptxas's launch count:
+  // another count would leave setmaxnreg.inc waiting for ever
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, corr_quad_tf32x3_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs != tc::kLaunchRegs)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   err = cudaFuncSetAttribute(corr_quad_tf32x3_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(tc::kSmemBytes));

@@ -1,6 +1,6 @@
 """Time variants of K4's "high" body on the card, to see what holds it back.
 
-    python -m gp_emu_uqsa_torch.tools.k4_high_variants
+    python -m gp_emu_uqsa_torch.tools.k4_high_variants [--parent DIR]
 
 Each variant is `csrc/corr_quad.cu` with a few lines replaced (`VARIANTS`),
 built with the port's nvcc flags into `_build/variants/` (all builds started
@@ -10,14 +10,23 @@ W = L^-1 of the training correlation (delta 0.8, nugget 1e-4), the data and
 factor of `chip_smoke.py` phase 2. For each variant it prints the median
 CUDA-event time of 3 calls after a warm-up, the max abs error on quad
 against fp64 arithmetic on the same W and c, and ptxas's register and
-spill report. The variants that drop work give wrong answers on purpose:
-they time what is left. The unchanged body is also timed at d = 1, 2 and 4
-(the first d coordinates), since only the correlation rebuild grows with d.
+spill report with any advisory that the wgmma were serialized or that
+setmaxnreg was ignored. The variants that drop work give wrong answers on
+purpose: they time what is left. The body as built is then timed alone
+(`launches_ms`: the C entry point, W's split included, on fixed buffers) at
+d = 1, 2, 4, 8 and 20 (the first d coordinates; d = 20 on 12 more uniform
+ones, with the same W), since only the correlation rebuild grows with d.
+With `--parent DIR` the same source of another checkout (for instance the
+parent commit unpacked with `git archive`) is built and timed beside it,
+and its quad is compared with this one's (max abs difference, and that
+over the largest quad: at d != 8 the W is not the points' own factor, so
+quad is not bounded by 1 there).
 
 Needs one NVIDIA Hopper card and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -35,25 +44,37 @@ from gp_emu_uqsa_torch.ops import serve as sv
 N, D, M = 16384, 8, 65536
 DELTA, NUGGET = 0.8, 1e-4
 
+_PAIR = "constexpr int kPairK = 2;"
+_ONE = "constexpr int kPairK = 1;"
 _FOLD = "constexpr int kFoldStages = 4;"
-_EXP = "const float c = expf(-d2[s][i]);"
+_EXP = "const float c = expf(-d2[4 * v + e]);"
 _SPLIT = "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
-# name -> (what it changes, [(text of corr_quad.cu, replacement)])
+# name -> (what it changes, [(text of corr_quad.cu, replacement)]). As
+# built, two k tiles share each rebuilt c stage and so fold every stage; the
+# fold schedules need one k tile a pass.
 VARIANTS = {
     "as built": ("nothing", []),
-    "fold every stage": ("the fp32 fold after each stage (4 k8 steps)",
-                         [(_FOLD, "constexpr int kFoldStages = 1;")]),
-    "fold every 16 stages": ("the fp32 fold after 16 stages",
-                             [(_FOLD, "constexpr int kFoldStages = 16;")]),
-    "no fold": ("the tensor cores sum each k tile's whole j sweep",
-                [(_FOLD, "constexpr int kFoldStages = 1 << 20;")]),
-    "no rebuild": ("c is a constant: no distances, exp or split (wrong "
-                   "answers)", [(_EXP, "const float c = 0.5f;")]),
-    "no rebuild, no fold": ("both of the above (wrong answers)",
-                            [(_EXP, "const float c = 0.5f;"),
+    "one k tile a pass": ("each rebuilt c stage feeds one k tile, folded "
+                          "every 4 stages: the parent body's work and "
+                          "schedule", [(_PAIR, _ONE)]),
+    "fold every stage": ("one k tile a pass, the fp32 fold after each stage "
+                         "(4 k8 steps)",
+                         [(_PAIR, _ONE), (_FOLD, "constexpr int kFoldStages = 1;")]),
+    "fold every 16 stages": ("one k tile a pass, the fp32 fold after 16 "
+                             "stages", [(_PAIR, _ONE),
+                                        (_FOLD, "constexpr int kFoldStages = 16;")]),
+    "no fold": ("one k tile a pass, the tensor cores sum each k tile's "
+                "whole j sweep",
+                [(_PAIR, _ONE), (_FOLD, "constexpr int kFoldStages = 1 << 20;")]),
+    "no rebuild": ("the rebuild warps write a constant c: no distances, exp "
+                   "or split (wrong answers)",
+                   [(_EXP, "const float c = 0.5f;")]),
+    "no rebuild, no fold": ("one k tile a pass, constant c, no fold (wrong "
+                            "answers)",
+                            [(_PAIR, _ONE), (_EXP, "const float c = 0.5f;"),
                              (_FOLD, "constexpr int kFoldStages = 1 << 20;")]),
     "__expf": ("the fast exp intrinsic in the rebuild",
-               [(_EXP, "const float c = __expf(-d2[s][i]);")]),
+               [(_EXP, "const float c = __expf(-d2[4 * v + e]);")]),
     "cvt.rna split": ("the split by cvt.rna.tf32.f32 instead of add-and-mask",
                       [(_SPLIT, 'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;"'
                                 ' : "=r"(r) : "f"(x));\n  return r;')]),
@@ -61,12 +82,14 @@ VARIANTS = {
 
 
 def build_variants(source: str = "corr_quad.cu", variants=None,
-                   kernel: str = "tf32x3"):
+                   kernel: str = "tf32x3", label: str | None = None):
     """{name: (ctypes library, ptxas lines of `kernel`)} for each variant of
-    `source` (default: this module's VARIANTS of the "high" body)."""
+    `source` (a file of csrc/ or a path; default: this module's VARIANTS of
+    the "high" body), built into `_build/variants/<label or stem>/`."""
     variants = VARIANTS if variants is None else variants
-    src = (_build.CSRC / source).read_text()
-    out = _build.BUILD_ROOT / "variants" / Path(source).stem
+    path = _build.CSRC / source
+    src = path.read_text()
+    out = _build.BUILD_ROOT / "variants" / (label or Path(source).stem)
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, (_, edits)) in enumerate(variants.items()):
@@ -79,7 +102,7 @@ def build_variants(source: str = "corr_quad.cu", variants=None,
         cu = out / f"v{i}.cu"
         cu.write_text(text)
         so = out / f"v{i}.{os.getpid()}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(path.parent),
                "-o", str(so), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -95,13 +118,18 @@ def build_variants(source: str = "corr_quad.cu", variants=None,
 
 def ptxas_report(log: str, kernel: str) -> list[str]:
     """ptxas's register and spill lines for the entry function whose
-    (mangled) name contains `kernel`, from nvcc's -Xptxas -v output."""
+    (mangled) name contains `kernel`, from nvcc's -Xptxas -v output, and
+    every advisory about that function that its wgmma were serialized or
+    its setmaxnreg ignored."""
     lines = log.splitlines()
     at = next(i for i, line in enumerate(lines)
               if "Compiling entry function" in line and kernel in line)
-    return [line.split("info    :")[-1].strip()
-            for line in lines[at + 1:at + 4]
-            if "spill" in line or "registers" in line]
+    report = [line.split("info    :")[-1].strip()
+              for line in lines[at + 1:at + 4]
+              if "spill" in line or "registers" in line]
+    return report + [line.strip() for line in lines
+                     if ("serialized" in line or "setmaxnreg" in line)
+                     and kernel in line]
 
 
 def launch(lib, xs, xt, w):
@@ -146,7 +174,31 @@ def launches_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def main() -> int:
+def entry_ms(lib, xs, xt, w) -> tuple[float, torch.Tensor]:
+    """(launches_ms of one variant's gp_corr_quad_tf32x3 alone on fixed
+    buffers prepared as ops/serve.py prepares them, its quad)."""
+    (m, d), n = xs.shape, xt.shape[0]
+    ld = -(-n // 4) * 4
+    xt_t = torch.zeros((d, ld), dtype=torch.float32, device=xs.device)
+    xt_t[:, :n] = xt.T
+    w_split = torch.empty((2, n, ld), dtype=torch.float32, device=xs.device)
+    quad = torch.zeros((m,), dtype=torch.float32, device=xs.device)
+    fn = _build.entry(lib, "gp_corr_quad_tf32x3", sv._QUAD_TF32X3_ARGTYPES)
+    args = (xs.data_ptr(), xt_t.data_ptr(), w.data_ptr(), w_split.data_ptr(),
+            quad.data_ptr(), m, n, d, ld, _build.stream_ptr(xs))
+
+    def call():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"gp_corr_quad_tf32x3: CUDA error {err}")
+    return launches_ms(call), quad
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="another checkout whose corr_quad.cu is timed beside")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k4_high_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -156,6 +208,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     libs = build_variants()
+    parent = None
+    if args.parent:
+        src = Path(args.parent).resolve() / "gp_emu_uqsa_torch/csrc/corr_quad.cu"
+        parent = build_variants(str(src), {"parent": ("as committed there", [])},
+                                label="parent")["parent"]
     # chip_smoke.py phase 2's data: bench.py::_problem's x, seed 0
     x_np = np.random.default_rng(0).uniform(size=(N, D)).astype(np.float32)
     x = torch.as_tensor(x_np, device=dev)
@@ -179,11 +236,29 @@ def main() -> int:
         err = float((quad.double() - q64).abs().max())
         print(f"  {name:22s} {t:9.2f} ms  vs fp64 {err:.3e}  "
               f"[{'; '.join(report)}]  ({VARIANTS[name][0]})")
-    for d in (1, 2, 4):
-        t, _ = time_ms(lambda: launch(libs["as built"][0],
-                                      xs[:, :d].contiguous(),
-                                      xt[:, :d].contiguous(), w))
-        print(f"  as built, d={d:<13d} {t:9.2f} ms")
+    if parent is not None:
+        print(f"  parent ptxas: [{'; '.join(parent[1])}]")
+    # d = 20: 12 more uniform coordinates (timing only; W stays d = 8's)
+    more = np.random.default_rng(2).uniform(size=(N + M, 20 - D)) \
+        .astype(np.float32)
+    x20 = torch.cat([x, torch.as_tensor(more[:N], device=dev)], dim=1)
+    xq20 = torch.cat([xq, torch.as_tensor(more[N:], device=dev)], dim=1)
+    xs20, xt20 = sv._scaled(xq20, x20, torch.full((20,), DELTA,
+                                                  dtype=torch.float32,
+                                                  device=dev))
+    for d in (1, 2, 4, 8, 20):
+        a, b = (xs20, xt20) if d == 20 else (xs[:, :d].contiguous(),
+                                              xt[:, :d].contiguous())
+        t, quad = entry_ms(libs["as built"][0], a, b, w)
+        line = f"  as built alone, d={d:<6d} {t:9.3f} ms"
+        if parent is not None:
+            tp, quad_p = entry_ms(parent[0], a, b, w)
+            diff = float((quad - quad_p).abs().max())
+            rel = diff / float(quad_p.abs().max())
+            line += (f"   parent {tp:9.3f} ms   max |quad - parent's| "
+                     f"{diff:.3e} ({rel:.2e} of max |quad|; bitwise equal: "
+                     f"{torch.equal(quad, quad_p)})")
+        print(line)
     print(card)
     return 0
 

@@ -8,8 +8,12 @@ rounding properties, an fp64 evaluation of the same W and c (the tier's
 4.7e-5 absolute budget on quad, docs/numerics.md) and the JAX package's
 "high" Pallas tier in interpret mode (rtol 1e-3, atol 1e-4, as
 test_torch_kernels.py). The `cuda` case holds the kernel against it on the
-card and skips elsewhere.
+card and skips elsewhere. The rebuild warps' stores into the c ring are
+modelled here and held against the addresses that the wgmma descriptor
+reads.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -154,17 +158,146 @@ def test_k4_variant_edits_match_the_source_once(name):
         assert src.count(old) == 1 and old != new
 
 
+# the kernel's lines that the c ring model below mirrors (each must be in
+# csrc/corr_quad.cu exactly once)
+_REBUILD_LINES = (
+    "const int qi = tid - tc::kConsumers;",
+    "const int swz = qi % 8;",
+    "float* c_row = s_c + (qi / 64) * tc::kCTile + (qi % 64) * tc::kChunkJ;",
+    "float* hi_row = c_row + cs * tc::kCStage;",
+    "float* lo_row = hi_row + tc::kWarpgroups * tc::kCTile;",
+    "for (int u1 = 0; u1 < tc::kChunkJ / 4; u1 += tc::kRebuildPass / 4) {",
+    "const int at = 4 * ((u1 + v) ^ swz);",
+    "const float* c_hi = s_c + cs * tc::kCStage + wg * tc::kCTile;",
+    "const uint64_t da_lo = sw128_desc(c_hi + tc::kWarpgroups * tc::kCTile);",
+    "float* s_c = s_w + tc::kStages * tc::kWStage;",
+    "constexpr int kStages = 4 / kPairK;            // W ring",
+    "constexpr int kWStage = 2 * kPairK * kWTile;   // W_hi, W_lo of each k tile of a pass",
+    "constexpr int kCTile = 64 * kChunkJ;           // floats in one warpgroup's A tile",
+    "constexpr int kCStage = 2 * kWarpgroups * kCTile;  // c_hi, c_lo of all queries",
+    "const uint64_t koff = 2 * s;",
+    "return static_cast<uint64_t>((smem_addr(tile) & 0x3ffff) >> 4) |",
+    "(uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) |",
+)
+
+
+def _tc_constants():
+    src = (_build.CSRC / "corr_quad.cu").read_text()
+    tc = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", tc)}
+    return src, const
+
+
+def _sw128_desc(addr):
+    """corr_quad.cu::sw128_desc: start address in 16-byte units, leading
+    byte offset 1 (unused), stride byte offset 1024 bytes, 128-byte swizzle."""
+    return (((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32)
+            | (1 << 62))
+
+
+def _desc_byte(desc, i, k):
+    """The shared-memory byte that a wgmma reads for row i, column k (fp32,
+    0 <= k < 8) of a K-major operand with the 128-byte swizzle (PTX ISA,
+    matrix descriptor; CUTLASS's Layout_K_SW128_Atom): rows of 128 bytes in
+    groups of 8 rows `stride byte offset` apart, and the 16-byte unit of
+    each address XORed with its 128-byte row within the 1024-byte atom."""
+    assert desc >> 62 == 1, "not the 128-byte swizzle"
+    start = (desc & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    logical = start + (i // 8) * sbo + (i % 8) * 128 + 4 * k
+    return logical ^ (((logical >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("rebuild_pass", ["built", "whole stage"])
+def test_c_ring_layout_matches_sw128_descriptor(rebuild_pass):
+    """Each rebuild thread's stores of c_hi and c_lo land exactly once in
+    the c ring, at the byte that the consumers' wgmma descriptors read for
+    the same query (row) and column (k): with the kernel's kRebuildPass
+    columns at a time, and with the whole stage at once."""
+    src, k = _tc_constants()
+    for line in _REBUILD_LINES:
+        assert src.count(line) == 1, line
+    wgs, chunk_j, c_stages = k["kWarpgroups"], k["kChunkJ"], k["kCStages"]
+    tile_q, c_tile = 64 * wgs, 64 * chunk_j
+    c_stage = 2 * wgs * c_tile
+    step = k["kRebuildPass"] if rebuild_pass == "built" else chunk_j
+    w_stage = 2 * k["kPairK"] * k["kTileK"] * chunk_j
+    base = 7 * 1024                                   # the kernel aligns to 1024
+    s_c = base + 4 * (4 // k["kPairK"]) * w_stage     # bytes
+    ring = 4 * c_stages * c_stage
+    assert s_c % 1024 == 0 and (4 * c_tile) % 1024 == 0
+
+    stored = {}                                       # (cs, part, i, j) -> byte
+    for qi in range(tile_q):                          # a rebuild thread a query
+        swz = qi % 8
+        c_row = (qi // 64) * c_tile + (qi % 64) * chunk_j   # floats from s_c
+        for cs in range(c_stages):
+            hi_row = c_row + cs * c_stage
+            lo_row = hi_row + wgs * c_tile
+            for u1 in range(0, chunk_j // 4, step // 4):
+                for v in range(step // 4):
+                    at = 4 * ((u1 + v) ^ swz)
+                    for e in range(4):
+                        j = 4 * (u1 + v) + e
+                        for part, row in (("hi", hi_row), ("lo", lo_row)):
+                            key = (cs, part, qi, j)
+                            assert key not in stored, key
+                            stored[key] = s_c + 4 * (row + at + e)
+    # every entry of every stage once, every 4-byte word of the ring once
+    assert len(stored) == c_stages * 2 * tile_q * chunk_j
+    words = sorted(stored.values())
+    assert words == list(range(s_c, s_c + ring, 4))
+
+    for cs in range(c_stages):
+        for wg in range(wgs):
+            c_hi = s_c + 4 * (cs * c_stage + wg * c_tile)
+            descs = {"hi": _sw128_desc(c_hi),
+                     "lo": _sw128_desc(c_hi + 4 * wgs * c_tile)}
+            for part, desc in descs.items():
+                for s in range(chunk_j // 8):
+                    koff = 2 * s
+                    for i in range(64):
+                        for kk in range(8):
+                            assert (_desc_byte(desc + koff, i, kk)
+                                    == stored[(cs, part, 64 * wg + i,
+                                               8 * s + kk)])
+
+
+def _gp_inverse_factor_on(x, delta, nugget, device):
+    """W = L^-1 of the correlation matrix of x, fp64 on `device`, fp32 out
+    (the features one at a time: no (n, n, d) tensor)."""
+    xd = (torch.as_tensor(x, dtype=torch.float64, device=device)
+          / torch.as_tensor(delta, dtype=torch.float64, device=device))
+    d2 = torch.zeros((len(x), len(x)), dtype=torch.float64, device=device)
+    for col in xd.T:
+        d2 += (col[:, None] - col[None, :]) ** 2
+    a = torch.exp(-d2)
+    a.diagonal().add_(nugget)
+    eye = torch.eye(len(x), dtype=torch.float64, device=device)
+    l = torch.linalg.cholesky(a)
+    return torch.linalg.solve_triangular(l, eye, upper=False).float()
+
+
 @pytest.mark.cuda
-def test_cuda_corr_quad_high_matches_tf32x3_plain():
+@pytest.mark.parametrize("d", [1, 8, 20])
+@pytest.mark.parametrize("n", [1, 127, 129, 16383])
+def test_cuda_corr_quad_high_matches_tf32x3_plain(n, d):
+    """Ragged shapes: m and n on both sides of the 128-query and 128-row
+    tiles and of a 32-column stage, up to the served n, at d = 1, 8, 20."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
-    _, xs, x, delta = _inputs(21, 300, 700, 8)
-    w = _gp_inverse_factor(x, delta, 1e-2)
-    args = [T(v, device=dev) for v in (xs, x, delta, w)]
-    before = tserve.corr_quad.launches
-    got = tserve.corr_quad(*args, quad_precision="high")
-    assert tserve.corr_quad.launches == before + 1
-    # same TF32 operands on both sides; only the fp32 summation order differs
-    torch.testing.assert_close(got, tserve.corr_quad_tf32x3_plain(*args),
-                               rtol=5e-4, atol=5e-5)
+    _, xs, x, delta = _inputs(21 + n + d, 4097, n, d)
+    w = _gp_inverse_factor_on(x, delta, 1e-2, dev)
+    x, delta = T(x, device=dev), T(delta, device=dev)
+    for m in (1, 127, 129, 4097):
+        xq = T(xs[:m], device=dev)
+        before = tserve.corr_quad.launches
+        got = tserve.corr_quad(xq, x, delta, w, quad_precision="high")
+        assert tserve.corr_quad.launches == before + 1
+        # same TF32 operands on both sides; only the fp32 summation order
+        # differs
+        torch.testing.assert_close(
+            got, tserve.corr_quad_tf32x3_plain(xq, x, delta, w),
+            rtol=5e-4, atol=5e-5, msg=lambda s: f"m={m}, n={n}, d={d}: {s}")

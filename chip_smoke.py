@@ -47,6 +47,20 @@ each of which fails the run with a non-zero exit:
    Check the results, the fused tier against the gemm tier, the two K4
    tiers against each other, and a small fp32 card run against the fp64
    CPU path.
+   3c. The Matern 5/2 instances of K3 and K4 (family="matern52") as phase
+   2 holds the Gaussian's, on phase 2's data at m=65536, n=16384, d=8:
+   K3 against corr_matvec_plain (r=10, and r in {1, 17} on 4096 queries),
+   both K4 tiers against corr_quad_plain and fp64 arithmetic on the same
+   fp32 inputs (phase 2's budgets), "high" against corr_quad_tf32x3_plain,
+   each timed alone, through its wrapper and plain, with its bound from
+   3d + 8 operations a rebuilt pair. Then a Matern 5/2 emulator of phase
+   3's data, fitted in fp32, served through Emulator.predict: two
+   fused-tier requests of m=65536 in a launch window of their own (the
+   Matern instances launched twice, the Gaussian ones never, m n pairs a
+   launch), a "highest" request of m=4096 in another, the fused tier
+   against the gemm tier, "high" against "highest" and the mean against
+   an fp64 sum of the same state, and the kernels' names in the
+   profiler's trace.
 4. Train at full width (n=4096, d=8, fp32, 8 restarts, data of
    `problem`), every check collected and failing the phase at its end:
    (a) the batched value and gradient of nll_mucm at the 8 LHC starts (K1,
@@ -168,8 +182,9 @@ each of which fails the run with a non-zero exit:
    held to tests/test_acceptance_configs.py's bounds (split R-hat < 1.1
    for config 4, the serving RMSE < 3e-3 for matrix_free, phase 4 (g)'s
    grid RMSE for config 1).
-10. Print the kernels JSON line (each entry with its serving, training,
-   UQSA, sampling, matrix-free, multi-device and examples launches), the
+10. Print the kernels JSON line (each entry, the Matern 5/2 instances of
+   K3 and K4 among them, with its serving, training, UQSA, sampling,
+   matrix-free, multi-device and examples launches), the
    card line, and as the last line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -571,23 +586,23 @@ def cross_entry(x1, x2, delta, out):
                       x1, x2, delta, out, m, n, d)
 
 
-def matvec_entry(xq, x, delta, rhs):
-    """K3's C entry point alone on buffers prepared as ops/serve.py
-    prepares them."""
+def matvec_entry(xq, x, delta, rhs, family="gaussian"):
+    """K3's C entry point (of the family's instance) alone on buffers
+    prepared as ops/serve.py prepares them."""
     xs, xt = sv._scaled(xq, x, delta)
     (m, d), (n, r) = xs.shape, rhs.shape
-    segments = sv._matvec_segments(m, n, r)
+    segments = sv._matvec_segments(m, n, r, family=family)
     out = torch.zeros((m, r), dtype=torch.float32, device=xs.device)
     partial = (torch.empty((segments, m, r), dtype=torch.float32,
                            device=xs.device) if segments > 1 else out)
-    return entry_call(sv._MATVEC_SOURCE, "gp_corr_matvec",
+    return entry_call(sv._MATVEC_SOURCE, sv._symbol("gp_corr_matvec", family),
                       sv._MATVEC_ARGTYPES, xs, xt, rhs, partial, out, m, n,
                       d, r, segments)
 
 
-def quad_entry(xq, x, delta, w, tier):
-    """K4's C entry point of one tier alone on buffers prepared as
-    ops/serve.py prepares them."""
+def quad_entry(xq, x, delta, w, tier, family="gaussian"):
+    """K4's C entry point of one tier (and the family's instance) alone on
+    buffers prepared as ops/serve.py prepares them."""
     xs, xt = sv._scaled(xq, x, delta)
     (m, d), n = xs.shape, xt.shape[0]
     quad = torch.zeros((m,), dtype=torch.float32, device=xs.device)
@@ -597,7 +612,8 @@ def quad_entry(xq, x, delta, w, tier):
     xt_t[:, :n] = xt.T
     if tier == "high":
         w_split = torch.empty((2, n, ld), dtype=torch.float32, device=xs.device)
-        return entry_call(sv._QUAD_SOURCE, "gp_corr_quad_tf32x3",
+        return entry_call(sv._QUAD_SOURCE,
+                          sv._symbol("gp_corr_quad_tf32x3", family),
                           sv._QUAD_TF32X3_ARGTYPES, xs, xt_t, w, w_split,
                           quad, m, n, d, ld)
     sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
@@ -605,8 +621,9 @@ def quad_entry(xq, x, delta, w, tier):
     wt = torch.empty((ld, ld), dtype=torch.float32, device=xs.device)
     partial = (torch.empty((splits, m), dtype=torch.float32, device=xs.device)
                if splits > 1 else quad)
-    return entry_call(sv._QUAD_SOURCE, "gp_corr_quad", sv._QUAD_ARGTYPES, xs,
-                      xt_t, w, wt, partial, quad, m, n, d, ld, splits)
+    return entry_call(sv._QUAD_SOURCE, sv._symbol("gp_corr_quad", family),
+                      sv._QUAD_ARGTYPES, xs, xt_t, w, wt, partial, quad, m, n,
+                      d, ld, splits)
 
 
 def device_kernels(fn):
@@ -668,15 +685,28 @@ def bound(bytes_moved: float, flops: float, peaks, tf32_flops: float = 0.0):
 
 _WRAPPERS = {"K1": km.gaussian_corr_self_fused, "K2": km.gaussian_corr_fused,
              "K3": sv.corr_matvec, "K4": sv.corr_quad}
+# K3 and K4 also count their launches by correlation family: "K3" and "K4"
+# are the Gaussian instances', the keys with a family the other instances'
+_BY_FAMILY = {"K3": (sv.corr_matvec, "gaussian"),
+              "K4": (sv.corr_quad, "gaussian"),
+              "K3 matern52": (sv.corr_matvec, "matern52"),
+              "K4 matern52": (sv.corr_quad, "matern52")}
+_MATERN = ("K3 matern52", "K4 matern52")
+_COUNTED = (*_WRAPPERS, *_MATERN)
 
 
 def counters():
-    return {key: fn.launches for key, fn in _WRAPPERS.items()}
+    got = {key: fn.launches for key, fn in _WRAPPERS.items()}
+    return {**got, **{key: fn.family_launches[family]
+                      for key, (fn, family) in _BY_FAMILY.items()}}
 
 
 def reset_counters():
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    for fn, _ in _BY_FAMILY.values():
+        fn.family_launches = dict.fromkeys(sv.FAMILIES, 0)
+        fn.family_pairs = dict.fromkeys(sv.FAMILIES, 0)
 
 
 def bf16x3_split(c, w):
@@ -973,8 +1003,11 @@ def phase_serve(dev, card):
     torch.cuda.synchronize()
     launches = counters()
     print(f"  launches in the serving run (K4 \"high\"): {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in _WRAPPERS) <= 0:
         raise SmokeFailure(f"a kernel of the path never launched: {launches}")
+    if max(launches[k] for k in _MATERN) > 0:
+        raise SmokeFailure(f"a Gaussian emulator ran a Matern instance: "
+                           f"{launches}")
     # the exact fp32 K4 body through the same entry point, counted apart
     reset_counters()
     _, var_h = served.predict(xq[:M_QUAD_CHECK], quad_precision="highest")
@@ -1045,6 +1078,210 @@ def phase_serve(dev, card):
     del served, emul
     torch.cuda.empty_cache()
     return launches, side["K4"]
+
+
+def phase_matern(dev, peaks, card):
+    """The Matern 5/2 instances of K3 and K4 at the serving path's shapes,
+    as phase 2 holds the Gaussian's, then a Matern 5/2 emulator served
+    through Emulator.predict. Returns (rows, the serving run's launches,
+    the "highest" request's K4 launches)."""
+    fam = "matern52"
+    print(f"[phase 3c] Matern 5/2 instances of K3 and K4, n={N_TRAIN}, "
+          f"d={DIM}, m={M_SERVE}, fp32 ({card})")
+    x_np, y_np = problem(N_TRAIN + N_VALID)
+    x = torch.as_tensor(x_np[:N_TRAIN], device=dev)
+    delta = torch.full((DIM,), DELTA, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(1)
+    xq = torch.as_tensor(rng.uniform(size=(M_SERVE, DIM)).astype(np.float32),
+                         device=dev)
+    n, d, m, r = N_TRAIN, DIM, M_SERVE, RHS_WIDTH
+    rows = {}
+
+    # K3: the serving slab (its R = 10 body), and on the first 4096 queries
+    # the vector body and 17 columns (the 16-wide body twice)
+    rhs17 = torch.as_tensor((rng.standard_normal((n, 17)) / np.sqrt(n))
+                            .astype(np.float32), device=dev)
+    rhs = rhs17[:, :r].contiguous()
+    err = check_close(f"K3 corr_matvec ({fam})",
+                      sv.corr_matvec(xq, x, delta, rhs, family=fam),
+                      sv.corr_matvec_plain(xq, x, delta, rhs, fam), 3e-5, 3e-5)
+    xc = xq[:M_QUAD_CHECK]
+    for b in (rhs17[:, 0], rhs17):
+        want = sv.corr_matvec_plain(xc, x, delta, b.reshape(n, -1), fam)
+        check_close(f"K3 corr_matvec ({fam}), m={M_QUAD_CHECK}, "
+                    f"r={want.shape[1]}",
+                    sv.corr_matvec(xc, x, delta, b, family=fam),
+                    want[:, 0] if b.ndim == 1 else want, 3e-5, 3e-5)
+    t_wrap, _ = time_ms(lambda: sv.corr_matvec(xq, x, delta, rhs, family=fam))
+    t = launches_ms(matvec_entry(xq, x, delta, rhs, fam))
+    tp, _ = time_ms(lambda: sv.corr_matvec_plain(xq, x, delta, rhs, fam),
+                    reps=3)
+    # operations a pair: the rebuild, 3d + 8 (gpbench/counts/serve_matern52.py),
+    # and r multiply-adds
+    rebuild = m * n * (3.0 * d + 8)
+    rows["K3 matern52"] = (err, t, t_wrap, tp,
+                           bound(4.0 * (m * d + n * d + n * r + m * r),
+                                 rebuild + m * n * 2.0 * r, peaks), None)
+    del rhs17
+
+    # K4 against W = L^-1 of the family's own training correlation (plain
+    # build: K1 is Gaussian only), both tiers at m = 65536, held against the
+    # plain version and against fp64 arithmetic on the same fp32 inputs
+    xs, xt = sv._scaled(x, x, delta)
+    a = sv.corr_plain(xt, xt, fam)
+    a.diagonal().add_(NUGGET)
+    l, jitter = chol.cholesky_with_jitter(a)
+    del a, xs, xt
+    w = torch.tril(chol.tri_inverse(l))
+    del l
+    print(f"  (K4 check factor: jitter {float(jitter):.4g})")
+    got = {}
+    t_high, got["high"] = time_ms(
+        lambda: sv.corr_quad(xq, x, delta, w, quad_precision="high",
+                             family=fam), reps=3)
+    t_highest, got["highest"] = time_ms(
+        lambda: sv.corr_quad(xq, x, delta, w, quad_precision="highest",
+                             family=fam), reps=3)
+    tp, want = time_ms(lambda: sv.corr_quad_plain(xq, x, delta, w, fam),
+                       reps=1)
+    errs = {}
+    for tier, rtol, atol in (("highest", 5e-4, 5e-5), ("high", 1e-3, 1e-4)):
+        errs[tier] = check_close(f"K4 corr_quad ({tier}, {fam}), m={m}",
+                                 got[tier], want, rtol, atol)
+    del want
+    w64 = w.double()
+    e64 = dict.fromkeys(got, 0.0)
+    for s in range(0, m, M_QUAD_CHECK):
+        sl = slice(s, s + M_QUAD_CHECK)
+        xs_s, xt_s = sv._scaled(xq[sl], x, delta)
+        u64 = sv.corr_plain(xs_s.double(), xt_s.double(), fam) @ w64.T
+        q64 = torch.sum(u64 * u64, dim=1)
+        del u64
+        for tier in got:
+            e64[tier] = max(e64[tier],
+                            float((got[tier][sl].double() - q64).abs().max()))
+    del w64
+    for tier, budget in (("high", QUAD_HIGH_FP64_BUDGET),
+                         ("highest", QUAD_HIGHEST_FP64_BUDGET)):
+        print(f"  K4 corr_quad ({tier}, {fam}), m={m}, vs fp64 on the same "
+              f"fp32 inputs: max abs {e64[tier]:.3e} (budget {budget:g})")
+        if e64[tier] > budget:
+            raise SmokeFailure(f"K4 {tier} ({fam}): {e64[tier]:.3e} from fp64 "
+                               f"exceeds {budget:g}")
+    for end, sl in (("first", slice(0, M_QUAD_CHECK)),
+                    ("last", slice(m - M_QUAD_CHECK, m))):
+        check_close(f"K4 corr_quad (high, {fam}) vs corr_quad_tf32x3_plain, "
+                    f"{end} {M_QUAD_CHECK} queries", got["high"][sl],
+                    sv.corr_quad_tf32x3_plain(xq[sl], x, delta, w, fam),
+                    5e-4, 5e-5)
+    alone = {tier: launches_ms(quad_entry(xq, x, delta, w, tier, fam))
+             for tier in ("high", "highest")}
+    k4_bytes = 4.0 * (m * d + n * d + n * (n + 1) / 2 + m)
+    tri_ops = m * n * (n + 1.0)
+    rows["K4 high matern52"] = (errs["high"], alone["high"], t_high, tp,
+                                bound(k4_bytes, rebuild, peaks, 3.0 * tri_ops),
+                                None)
+    rows["K4 highest matern52"] = (errs["highest"], alone["highest"],
+                                   t_highest, tp,
+                                   bound(k4_bytes, rebuild + tri_ops, peaks),
+                                   None)
+    for name, (_, t, t_wrap, tp, (b, by), _) in rows.items():
+        print(f"  {name}: {t:.4f} ms alone, {t_wrap:.4f} ms through the "
+              f"wrapper (plain {tp:.4f} ms, bound {b:.4f} ms by {by}) on "
+              f"{card}")
+    del w, got, x, xq
+    torch.cuda.empty_cache()
+
+    # the main path: a Matern 5/2 emulator (phase 3's data and
+    # hyperparameters, fitted in fp32 on the plain build) served through
+    # Emulator.predict, its launches counted from 0 over the fused requests
+    emul = Emulator.from_arrays(x_np, y_np, tv_config=(65, 64, 1),
+                                kernel=fam, dtype=torch.float32, device=dev,
+                                seed=0)
+    emul.params = params_from_numpy(np.log(np.full(DIM, DELTA)), 0.0,
+                                    np.log(NUGGET), device=dev,
+                                    dtype=torch.float32)
+    xt, yt, ht = emul.train_view()
+    emul.state = gp.fit(emul.params, xt, yt, ht, family=fam)
+    xq = np.random.default_rng(2).uniform(size=(M_SERVE, DIM))
+    torch.cuda.synchronize()
+    reset_counters()
+    emul.predict(xq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean_f, var_f = emul.predict(xq)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = counters()
+    pairs = {key: dict(fn.family_pairs)
+             for key, fn in (("K3", sv.corr_matvec), ("K4", sv.corr_quad))}
+    print(f"  launches in the Matern serving run (two requests of m={M_SERVE},"
+          f" K4 \"high\"): {launches}; pairs rebuilt {pairs}")
+    for key in ("K3", "K4"):
+        if (launches[f"{key} {fam}"] != 2 or launches[key] != 0
+                or pairs[key][fam] != 2 * M_SERVE * N_TRAIN):
+            raise SmokeFailure(f"the Matern emulator's requests did not run "
+                               f"{key}'s Matern instance twice over "
+                               f"{M_SERVE} x {N_TRAIN} pairs, and no other: "
+                               f"{launches}, {pairs}")
+    reset_counters()
+    _, var_h = emul.predict(xq[:M_QUAD_CHECK], quad_precision="highest")
+    torch.cuda.synchronize()
+    side = counters()
+    print(f"  launches in the Matern quad_precision=\"highest\" request: "
+          f"{side}")
+    if side[f"K4 {fam}"] != 1 or side["K4"] != 0:
+        raise SmokeFailure(f"the \"highest\" request did not launch K4's "
+                           f"Matern instance once: {side}")
+    for name, v in (("mean_fused", mean_f), ("var_fused", var_f),
+                    ("var_fused_highest", var_h)):
+        if not bool(torch.isfinite(v).all()):
+            raise SmokeFailure(f"Matern {name}: non-finite values")
+    if float(var_f.min()) < 0:
+        raise SmokeFailure("Matern: negative predictive variance")
+    # the tiers against each other and the mean against an fp64 sum of the
+    # same state, with phase 3's tolerances
+    s2 = float(emul.state.sigma2)
+    m_ref, v_ref = emul.predict(xq[:M_COMPARE], serve="gemm")
+    check_close(f"fused vs gemm mean ({fam})", mean_f[:M_COMPARE], m_ref,
+                1e-4, 1e-4 * max(1.0, s2))
+    check_close(f"fused vs gemm var ({fam})", var_f[:M_COMPARE], v_ref,
+                2e-3, 1e-4 * s2)
+    check_close(f"fused var, K4 high vs highest ({fam})",
+                var_f[:M_QUAD_CHECK], var_h, 0.0,
+                2 * QUAD_HIGH_FP64_BUDGET * s2)
+    xs, hs = emul._prepare_inputs(xq[:M_COMPARE])
+    st = emul.state
+    inv = 1.0 / torch.exp(st.params.log_delta).double()
+    c64 = sv.corr_plain(xs.double() * inv, xt.double() * inv, fam)
+    m64 = hs.double() @ st.beta.double() + c64 @ st.e.double()
+    del c64
+    fused_err = float((mean_f[:M_COMPARE].double() - m64).abs().max())
+    print(f"  Matern mean vs fp64 sum of the same state: fused "
+          f"{fused_err:.3e}, gemm {float((m_ref.double() - m64).abs().max()):.3e};"
+          f" |e| max {float(st.e.abs().max()):.3e}")
+    if fused_err > MEAN_FP64_BUDGET:
+        raise SmokeFailure(f"Matern fused mean: {fused_err:.3e} from fp64 "
+                           f"exceeds {MEAN_FP64_BUDGET:g}")
+    # the device trace names the family's instances, and no other
+    seen = device_kernels(lambda: emul.predict(xq[:M_QUAD_CHECK]))
+    if seen is None:
+        print("  Matern request's kernels on the card: not measured (the "
+              "profiler's trace holds no device activity)")
+    else:
+        served = sorted({k for k in seen if "corr_" in k})
+        print(f"  Matern request's correlation kernels on the card: {served}")
+        if (not any("corr_matvec" in k and "Matern52" in k for k in served)
+                or not any("corr_quad" in k and "Matern52" in k
+                           for k in served)
+                or any("Gaussian" in k for k in served)):
+            raise SmokeFailure(f"the Matern request's trace does not name "
+                               f"the Matern instances alone: {served}")
+    print(f"  Matern serve m={M_SERVE}: {serve_s * 1e3:.1f} ms = "
+          f"{M_SERVE / serve_s:.0f} mean+var points/s ({card})")
+    del emul, mean_f, var_f, var_h
+    torch.cuda.empty_cache()
+    return rows, launches, side[f"K4 {fam}"]
 
 
 def phase_reference(dev):
@@ -3469,7 +3706,7 @@ def _md_rank(rank, device_type):
     lines = []
     holds = multi_gpu_run.Holds(lines.append)
     chains = make_mesh({"chains": MD_RANKS}, device_type=device_type)
-    launches = dict.fromkeys(_WRAPPERS, 0)
+    launches = dict.fromkeys(_COUNTED, 0)
     peak, sent = {}, {}
 
     def add(counted):
@@ -3539,7 +3776,7 @@ def phase_multi_device(dev, card):
               f"{out['launches']}, bytes sent {out['bytes']}")
     launches = {k: a["launches"].get(k, 0)
                 + sum(out["launches"][k] for out in ranks)
-                for k in _WRAPPERS}
+                for k in _COUNTED}
     print(f"  multi-device launches ((a) and the ranks of (b)): {launches}")
     if launches["K1"] <= 0 or launches["K2"] <= 0:
         failures.append(f"K1 or K2 never launched on the path: {launches}")
@@ -3834,7 +4071,7 @@ def ex_noise(dev, card, failures, times, work):
                  and it0.shape == (150,) and bool(np.all(it0 > 0))
                  and rise[1] > rise[0],
                  f"sd {rise[0]:.3f} at 0.1 -> {rise[1]:.3f} at 0.9")
-    return {k: got.get(k, 0) + got_files.get(k, 0) for k in _WRAPPERS}
+    return {k: got.get(k, 0) + got_files.get(k, 0) for k in _COUNTED}
 
 
 def ex_matrix_free(dev, card, failures, times, work):
@@ -3880,7 +4117,7 @@ def phase_examples(dev, card):
     print(f"[phase 9] the example workflows ({card})")
     torch.cuda.empty_cache()
     failures, times = [], {}
-    launches = dict.fromkeys(_WRAPPERS, 0)
+    launches = dict.fromkeys(_COUNTED, 0)
 
     def add(got):
         for k in launches:
@@ -3959,6 +4196,8 @@ def main() -> int:
 
     rows = phase_kernels(dev, peaks, card)
     launches, launches_highest = phase_serve(dev, card)
+    rows_m, launches_m, launches_m_highest = phase_matern(dev, peaks, card)
+    rows.update(rows_m)
     phase_reference(dev)
     launches_train = phase_train(dev, card)
     launches_uqsa = phase_uqsa(dev, card)
@@ -3980,22 +4219,38 @@ def main() -> int:
         "K4 highest": ("corr_quad (highest, fp32)",
                        "gp_emu_uqsa_torch/csrc/corr_quad.cu",
                        "gp_emu_uqsa_tpu/ops/serve.py:371"),
+        # the JAX package serves a Matern emulator through gp.predict_batched
+        "K3 matern52": ("corr_matvec (matern52)",
+                        "gp_emu_uqsa_torch/csrc/corr_matvec.cu",
+                        "gp_emu_uqsa_tpu/gp.py:442"),
+        "K4 high matern52": ("corr_quad (high, 3xTF32 wgmma, matern52)",
+                             "gp_emu_uqsa_torch/csrc/corr_quad.cu",
+                             "gp_emu_uqsa_tpu/gp.py:442"),
+        "K4 highest matern52": ("corr_quad (highest, fp32, matern52)",
+                                "gp_emu_uqsa_torch/csrc/corr_quad.cu",
+                                "gp_emu_uqsa_tpu/gp.py:442"),
     }
+
+    def by_body(got, high_only=False):
+        """A window's launches by kernel entry: K4's count holds both of
+        its bodies, so a window that may run either gives each the count."""
+        return {**got, "K4 high": got["K4"],
+                "K4 highest": 0 if high_only else got["K4"],
+                "K4 high matern52": got["K4 matern52"],
+                "K4 highest matern52": 0 if high_only else got["K4 matern52"]}
+    # the serving windows of phases 3 and 3c count the bodies apart
     launches = {**launches, "K4 high": launches["K4"],
-                "K4 highest": launches_highest}
-    launches_train = {**launches_train, "K4 high": launches_train["K4"],
-                      "K4 highest": launches_train["K4"]}
-    launches_uqsa = {**launches_uqsa, "K4 high": launches_uqsa["K4"],
-                     "K4 highest": launches_uqsa["K4"]}
-    launches_bayes = {**launches_bayes, "K4 high": launches_bayes["K4"],
-                      "K4 highest": launches_bayes["K4"]}
-    launches_mf = {**launches_mf, "K4 high": launches_mf["K4"],
-                   "K4 highest": launches_mf["K4"]}
-    launches_md = {**launches_md, "K4 high": launches_md["K4"],
-                   "K4 highest": launches_md["K4"]}
+                "K4 highest": launches_highest,
+                "K3 matern52": launches_m["K3 matern52"],
+                "K4 high matern52": launches_m["K4 matern52"],
+                "K4 highest matern52": launches_m_highest}
+    launches_train = by_body(launches_train)
+    launches_uqsa = by_body(launches_uqsa)
+    launches_bayes = by_body(launches_bayes)
+    launches_mf = by_body(launches_mf)
+    launches_md = by_body(launches_md)
     # phase 9 serves with quad_precision "high" only
-    launches_ex = {**launches_ex, "K4 high": launches_ex["K4"],
-                   "K4 highest": 0}
+    launches_ex = by_body(launches_ex, high_only=True)
     entries = []
     for key, (name, source, replaces) in where.items():
         err, t, t_wrap, tp, (b, by), lib = rows[key]

@@ -11,6 +11,37 @@ namespace gpemu {
 // Pallas kernels.
 constexpr int kMaxD = 20;
 
+// Correlation families of the serving kernels K3 and K4 (template arguments
+// of their bodies), on the delta-scaled squared distance d2 >= 0, which every
+// body sums from exact fp32 differences with FMAs. Each family is an
+// instance of its own, named in the kernel's name in a device trace
+// (`corr_quad_tf32x3_kernel<gpemu::Matern52>`).
+//
+// Gaussian: exp(-d2), with expf (at most 2 ulp: CUDA C++ Programming Guide,
+// mathematical functions, single precision).
+struct Gaussian {
+  static __device__ __forceinline__ float corr(float d2) { return expf(-d2); }
+};
+// Matern52 (nu = 5/2, Rasmussen & Williams 2006 eq. 4.17): r = sqrt(d2),
+// s = sqrt(5) r, c = (1 + s + s^2 / 3) exp(-s). The root is sqrt.approx.f32
+// (one MUFU.SQRT, exact at 0), not sqrtf: nvcc's default -prec-sqrt=true
+// makes sqrtf IEEE-rounded through correction steps and a special-case
+// branch, which took K4 "high"'s Matern instance from 200 to 253 ms at m =
+// 65536, n = 16384, d = 8 (H100 80GB HBM3 at 700 W; the quad's error from
+// fp64 1.86e-5 and 1.91e-5). exp is expf, as the Gaussian's. Each entry as
+// K3 returns it at n = 1, against fp64 on the same fp32 inputs over d2 in
+// [0, 40] (tools/family_kernels.py, same card): at most 1.99e-6 relative
+// (33 u, u = 2^-24), where s's error enters exp(-s) times s = 14; the
+// Gaussian's 8.65e-6, from the rounding of d2 itself times d2 = 40.
+struct Matern52 {
+  static __device__ __forceinline__ float corr(float d2) {
+    float r;
+    asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(d2));
+    const float s = 2.23606797749979f * r;
+    return fmaf(s * (1.f / 3.f), s, 1.f + s) * expf(-s);
+  }
+};
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,

@@ -1,21 +1,25 @@
-// K3: out = exp(-D2(xs, xt)) @ rhs without writing the (m, n) correlation
-// block, out (m, r), rhs (n, r) with r <= 128.
+// K3: out = c(xs, xt) @ rhs without writing the (m, n) correlation block,
+// out (m, r), rhs (n, r) with r <= 128; c is a correlation family of
+// common.cuh on the squared distance D2: the Gaussian exp(-D2)
+// (gp_corr_matvec) or the Matern 5/2 (gp_corr_matvec_matern52), one
+// instance of the body each.
 //
 // Replaces gp_emu_uqsa_tpu/ops/serve.py::corr_matvec_pallas (its bodies
 // _kernel_packed, _kernel_fp32 and _contract). Serving packs
 // rhs = [e | A^-1 H], so one pass gives the posterior mean's c e and the
 // R-term's c A^-1 H.
 //
-// Bound on the card: operations, m n (3d + 1 + 2r) fp32 operations against
+// Bound on the card: operations, m n (3d + 1 + 2r) fp32 operations (the
+// Gaussian; the Matern 5/2's root, exp and polynomial count 3d + 8) against
 // a few MB of inputs and outputs. Each entry of c is used r times and by one
 // query only, so nothing is gained by sharing it between threads; what
 // costs issue slots is every instruction beside the 2d + r FMAs and
-// subtractions and the exp. The design keeps those few:
+// subtractions and the family's c. The design keeps those few:
 //  - one query a thread, its d <= 20 coordinates in registers; a block of
 //    256 queries stages 256 training points (coordinates, and their rhs
 //    rows in a slab of R columns) in shared memory, which every thread
 //    reads as float4 broadcasts. Each c(i, j) is formed in a register (fp32
-//    differences with FMAs, expf) and at once FMA-ed into R register
+//    differences with FMAs, then Family::corr) and at once FMA-ed into R register
 //    accumulators: the correlation never touches shared memory;
 //  - R is a template parameter: 1 (a vector rhs), 10 (serving's 1 + q at
 //    d = 8 with a linear basis) and a general 16; wider rhs go through
@@ -51,7 +55,7 @@ template <int R>
 __host__ __device__ constexpr int rhs_stride() { return R == 1 ? 1 : (R + 3) / 4 * 4; }
 
 // out: (segments, m, r) partials, or (m, r) itself for one segment
-template <int R>
+template <int R, class Family>
 __global__ void __launch_bounds__(kThreads)
 corr_matvec_kernel(const float* __restrict__ xs, const float* __restrict__ xt,
                    const float* __restrict__ rhs, float* __restrict__ out,
@@ -109,7 +113,7 @@ corr_matvec_kernel(const float* __restrict__ xs, const float* __restrict__ xt,
           u = q[4 * v + 3] - t.w;
           d2 = fmaf(u, u, d2);
         }
-        const float cij = expf(-d2);
+        const float cij = Family::corr(d2);
         if constexpr (R == 1) {
           part[0] = fmaf(cij, s_r[jj], part[0]);
         } else {
@@ -156,22 +160,22 @@ __global__ void matvec_combine_kernel(const float* __restrict__ partial,
 // the body that takes r columns: a vector, serving's 10, or slabs of 16
 using MatvecKernel = void (*)(const float*, const float*, const float*,
                               float*, int, int, int, int, int);
+template <class Family>
 MatvecKernel body_for(int r) {
-  if (r == 1) return corr_matvec_kernel<1>;
-  if (r == 10) return corr_matvec_kernel<10>;
-  return corr_matvec_kernel<kSlab>;
+  if (r == 1) return corr_matvec_kernel<1, Family>;
+  if (r == 10) return corr_matvec_kernel<10, Family>;
+  return corr_matvec_kernel<kSlab, Family>;
 }
-
-}  // namespace
 
 // Segments of n for an (m, n, r) product on the current device: as many as
 // fill every SM's resident blocks twice, at most one chunk each.
-extern "C" int gp_corr_matvec_segments(int m, int n, int r) {
+template <class Family>
+int matvec_segments(int m, int n, int r) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, body_for(r),
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, body_for<Family>(r),
                                                     kThreads, 0) != cudaSuccess)
     return 1;
   const int64_t blocks = static_cast<int64_t>((m + kThreads - 1) / kThreads) *
@@ -182,6 +186,37 @@ extern "C" int gp_corr_matvec_segments(int m, int n, int r) {
   return static_cast<int>(s < 1 ? 1 : (s > chunks ? chunks : s));
 }
 
+template <class Family>
+int launch_matvec(const float* xs, const float* xt, const float* rhs,
+                  float* partial, float* out, int m, int n, int d, int r,
+                  int segments, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > gpemu::kMaxD || segments < 1 ||
+      segments > (n + kChunk - 1) / kChunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slab = r == 1 || r == 10 ? r : kSlab;
+  const dim3 grid((m + kThreads - 1) / kThreads, segments, (r + slab - 1) / slab);
+  body_for<Family>(r)<<<grid, kThreads, 0, s>>>(
+      xs, xt, rhs, segments > 1 ? partial : out, m, n, d, r, segments);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || segments == 1) return static_cast<int>(err);
+  const int64_t size = static_cast<int64_t>(m) * r;
+  matvec_combine_kernel<<<static_cast<unsigned>((size + 255) / 256), 256, 0, s>>>(
+      partial, out, size, segments);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Segments of n for an (m, n, r) product of the family's body on the current
+// device.
+extern "C" int gp_corr_matvec_segments(int m, int n, int r) {
+  return matvec_segments<gpemu::Gaussian>(m, n, r);
+}
+extern "C" int gp_corr_matvec_segments_matern52(int m, int n, int r) {
+  return matvec_segments<gpemu::Matern52>(m, n, r);
+}
+
 // xs: (m, d) delta-scaled queries, xt: (n, d) delta-scaled training inputs,
 // rhs: (n, r), partial: (segments, m, r) scratch (unused for one segment),
 // out: (m, r); all fp32, row-major, on the device; 1 <= d <= 20,
@@ -190,18 +225,13 @@ extern "C" int gp_corr_matvec(const float* xs, const float* xt,
                               const float* rhs, float* partial, float* out,
                               int m, int n, int d, int r, int segments,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > gpemu::kMaxD || segments < 1 ||
-      segments > (n + kChunk - 1) / kChunk)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int slab = r == 1 || r == 10 ? r : kSlab;
-  const dim3 grid((m + kThreads - 1) / kThreads, segments, (r + slab - 1) / slab);
-  body_for(r)<<<grid, kThreads, 0, s>>>(xs, xt, rhs, segments > 1 ? partial : out,
-                                        m, n, d, r, segments);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || segments == 1) return static_cast<int>(err);
-  const int64_t size = static_cast<int64_t>(m) * r;
-  matvec_combine_kernel<<<static_cast<unsigned>((size + 255) / 256), 256, 0, s>>>(
-      partial, out, size, segments);
-  return static_cast<int>(cudaGetLastError());
+  return launch_matvec<gpemu::Gaussian>(xs, xt, rhs, partial, out, m, n, d, r,
+                                        segments, stream);
+}
+extern "C" int gp_corr_matvec_matern52(const float* xs, const float* xt,
+                                       const float* rhs, float* partial,
+                                       float* out, int m, int n, int d, int r,
+                                       int segments, void* stream) {
+  return launch_matvec<gpemu::Matern52>(xs, xt, rhs, partial, out, m, n, d, r,
+                                        segments, stream);
 }

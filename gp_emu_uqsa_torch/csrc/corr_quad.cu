@@ -1,5 +1,8 @@
 // K4: quad(x*) = |W c(x*)|^2 with W = L^-1 lower-triangular (n, n), without
-// writing the (m, n) correlation block; quad (m,).
+// writing the (m, n) correlation block; quad (m,). c is a correlation family
+// of common.cuh, a template argument of both bodies: the Gaussian
+// (gp_corr_quad, gp_corr_quad_tf32x3) or the Matern 5/2 (the same entry
+// points with _matern52), one instance of each body a family.
 //
 // Replaces gp_emu_uqsa_tpu/ops/serve.py::corr_quad_pallas (its bodies
 // _quad_kernel, _quad_kernel_bf16x3, _quad_epilogue and _corr_tile): the
@@ -32,7 +35,7 @@
 //    double-buffered ring (212 KB of shared memory): cp.async (16 bytes)
 //    brings the next chunk's Wt rows and the coordinates of the chunk after
 //    it, and the next chunk's c(i, j) is rebuilt into shared memory (fp32
-//    differences with FMAs, expf; 32 entries a thread) while the current
+//    differences with FMAs, Family::corr; 32 entries a thread) while the current
 //    chunk's FMAs run; one __syncthreads a chunk. A rebuilt entry feeds
 //    256 FMAs (PR 1's body: 64), which halved the rebuild's cost against
 //    a 128-row k tile; chunks of 32 and 16 columns took 7% and 17% longer;
@@ -56,8 +59,9 @@
 // is formed. Bound on the card: the 3 m n (n + 1) operations at the dense
 // TF32 rate. Two kinds of work share each SM: the products and the rebuild
 // of c(x*, X) on the CUDA cores (fp32 differences, expf, the split: about
-// 2d + 15 instructions an entry), which is repeated for every k tile that
-// meets an entry. On an H100 at its 700 W limit the body draws the whole
+// 2d + 15 instructions an entry for the Gaussian; the Matern 5/2's root and
+// polynomial add about 10), which is repeated for every k tile that meets an
+// entry. On an H100 at its 700 W limit the body draws the whole
 // limit in every form tried (SM clock 1.6-1.8 GHz of 1.98), so time follows
 // energy: the rebuild costs the same on the consumers' warps or on warps of
 // its own (tools/k4_high_variants.py). The design gives the rebuild its own
@@ -84,7 +88,7 @@
 //    the TMA copies and the rest give their registers away. A rebuild
 //    thread owns one query and the stage's 32 columns, 16 at a time: it
 //    reads the coordinates as broadcasts, sums the d squared differences,
-//    takes expf and the split, and stores 16-byte units to the c ring (a
+//    takes Family::corr and the split, and stores 16-byte units to the c ring (a
 //    quarter-warp's 8 rows land in distinct banks). A consumer warpgroup
 //    waits for a stage, then for each k tile of the pass issues its 12
 //    products as one wgmma group, waits for them and folds;
@@ -204,6 +208,7 @@ __device__ __forceinline__ int k_tile_start(int idx, int split, int splits,
 // xt_t: (d, ld) the delta-scaled training inputs transposed, zero-padded;
 // wt: (ld, ld) from w_transpose_kernel; out: (splits, m) partials of quad
 // (quad itself for one split). ld is a multiple of kTileK.
+template <class Family>
 __global__ void __launch_bounds__(fp::kThreads, 1)
 corr_quad_fp32_kernel(const float* __restrict__ xs,
                       const float* __restrict__ xt_t,
@@ -286,7 +291,7 @@ corr_quad_fp32_kernel(const float* __restrict__ xs,
     float* sc = s_c + buf * fp::kChunkJ * fp::kTileQ + ci;
 #pragma unroll
     for (int jj = 0; jj < fp::kRebuildJ; ++jj)
-      sc[(cj + jj) * fp::kTileQ] = expf(-d2[jj]);
+      sc[(cj + jj) * fp::kTileQ] = Family::corr(d2[jj]);
   };
 
   // contraction: queries 4 ty .. 4 ty + 3 and 64 + 4 ty .. 64 + 4 ty + 3,
@@ -611,6 +616,7 @@ __device__ __forceinline__ Pass pass_of(int k0, int n) {
   return p;
 }
 
+template <class Family>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 corr_quad_tf32x3_kernel(const __grid_constant__ CUtensorMap w_hi_map,
                         const __grid_constant__ CUtensorMap w_lo_map,
@@ -792,7 +798,7 @@ corr_quad_tf32x3_kernel(const __grid_constant__ CUtensorMap w_hi_map,
             uint32_t hi[4], lo[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const float c = expf(-d2[4 * v + e]);
+              const float c = Family::corr(d2[4 * v + e]);
               hi[e] = tf32_rna(c);
               lo[e] = tf32_rna(c - __uint_as_float(hi[e]));
             }
@@ -888,16 +894,10 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const float* data,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-// The "highest" tier. xs: (m, d) delta-scaled queries; xt_t: (d, ld) the
-// delta-scaled training inputs transposed, zero-padded; w: (n, n) with W in
-// its lower triangle; wt: (ld, ld) scratch; partial: (splits, m) scratch,
-// unused for one split; quad: (m,). All fp32 on the device, ld a multiple
-// of 256 and >= n, 1 <= d <= 20, 1 <= splits <= (ld / 256 + 1) / 2.
-extern "C" int gp_corr_quad(const float* xs, const float* xt_t, const float* w,
-                            float* wt, float* partial, float* quad, int m,
-                            int n, int d, int ld, int splits, void* stream) {
+template <class Family>
+int launch_quad(const float* xs, const float* xt_t, const float* w, float* wt,
+                float* partial, float* quad, int m, int n, int d, int ld,
+                int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = ld / fp::kTileK;
   if (ld % fp::kTileK != 0 || ld < n || d < 1 || d > gpemu::kMaxD ||
@@ -907,12 +907,12 @@ extern "C" int gp_corr_quad(const float* xs, const float* xt_t, const float* w,
   w_transpose_kernel<<<tgrid, 256, 0, s>>>(w, wt, n, ld);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(corr_quad_fp32_kernel,
+  err = cudaFuncSetAttribute(corr_quad_fp32_kernel<Family>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(fp::kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + fp::kTileQ - 1) / fp::kTileQ, splits);
-  corr_quad_fp32_kernel<<<grid, fp::kThreads, fp::kSmemBytes, s>>>(
+  corr_quad_fp32_kernel<Family><<<grid, fp::kThreads, fp::kSmemBytes, s>>>(
       xs, xt_t, wt, splits > 1 ? partial : quad, m, n, d, ld, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
@@ -920,14 +920,10 @@ extern "C" int gp_corr_quad(const float* xs, const float* xt_t, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The "high" tier. xs: (m, d) delta-scaled queries; xt_t: (d, ld) the
-// delta-scaled training inputs transposed; w: (n, n) with W in its lower
-// triangle; w_split: (2, n, ld) scratch for W_hi, W_lo; quad: (m,). All
-// fp32 on the device, 16-byte aligned, ld a multiple of 4 and >= n,
-// 1 <= d <= 20.
-extern "C" int gp_corr_quad_tf32x3(const float* xs, const float* xt_t,
-                                   const float* w, float* w_split, float* quad,
-                                   int m, int n, int d, int ld, void* stream) {
+template <class Family>
+int launch_quad_tf32x3(const float* xs, const float* xt_t, const float* w,
+                       float* w_split, float* quad, int m, int n, int d, int ld,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w_hi = w_split;
   float* w_lo = w_split + static_cast<size_t>(n) * ld;
@@ -951,16 +947,56 @@ extern "C" int gp_corr_quad_tf32x3(const float* xs, const float* xt_t,
   // the register budget of the warp roles assumes ptxas's launch count:
   // another count would leave setmaxnreg.inc waiting for ever
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, corr_quad_tf32x3_kernel);
+  err = cudaFuncGetAttributes(&attr, corr_quad_tf32x3_kernel<Family>);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (attr.numRegs != tc::kLaunchRegs)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaFuncSetAttribute(corr_quad_tf32x3_kernel,
+  err = cudaFuncSetAttribute(corr_quad_tf32x3_kernel<Family>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(tc::kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + tc::kTileQ - 1) / tc::kTileQ);
-  corr_quad_tf32x3_kernel<<<grid, tc::kThreads, tc::kSmemBytes, s>>>(
+  corr_quad_tf32x3_kernel<Family><<<grid, tc::kThreads, tc::kSmemBytes, s>>>(
       hi_map, lo_map, t_map, xs, quad, m, n, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The "highest" tier. xs: (m, d) delta-scaled queries; xt_t: (d, ld) the
+// delta-scaled training inputs transposed, zero-padded; w: (n, n) with W in
+// its lower triangle; wt: (ld, ld) scratch; partial: (splits, m) scratch,
+// unused for one split; quad: (m,). All fp32 on the device, ld a multiple
+// of 256 and >= n, 1 <= d <= 20, 1 <= splits <= (ld / 256 + 1) / 2.
+extern "C" int gp_corr_quad(const float* xs, const float* xt_t, const float* w,
+                            float* wt, float* partial, float* quad, int m,
+                            int n, int d, int ld, int splits, void* stream) {
+  return launch_quad<gpemu::Gaussian>(xs, xt_t, w, wt, partial, quad, m, n, d,
+                                      ld, splits, stream);
+}
+extern "C" int gp_corr_quad_matern52(const float* xs, const float* xt_t,
+                                     const float* w, float* wt, float* partial,
+                                     float* quad, int m, int n, int d, int ld,
+                                     int splits, void* stream) {
+  return launch_quad<gpemu::Matern52>(xs, xt_t, w, wt, partial, quad, m, n, d,
+                                      ld, splits, stream);
+}
+
+// The "high" tier. xs: (m, d) delta-scaled queries; xt_t: (d, ld) the
+// delta-scaled training inputs transposed; w: (n, n) with W in its lower
+// triangle; w_split: (2, n, ld) scratch for W_hi, W_lo; quad: (m,). All
+// fp32 on the device, 16-byte aligned, ld a multiple of 4 and >= n,
+// 1 <= d <= 20.
+extern "C" int gp_corr_quad_tf32x3(const float* xs, const float* xt_t,
+                                   const float* w, float* w_split, float* quad,
+                                   int m, int n, int d, int ld, void* stream) {
+  return launch_quad_tf32x3<gpemu::Gaussian>(xs, xt_t, w, w_split, quad, m, n,
+                                             d, ld, stream);
+}
+extern "C" int gp_corr_quad_tf32x3_matern52(const float* xs, const float* xt_t,
+                                            const float* w, float* w_split,
+                                            float* quad, int m, int n, int d,
+                                            int ld, void* stream) {
+  return launch_quad_tf32x3<gpemu::Matern52>(xs, xt_t, w, w_split, quad, m, n,
+                                             d, ld, stream);
 }

@@ -19,13 +19,19 @@ marginalized over the draws, `inference.hmc.predict_marginalized`).
 
 Serving tiers (`predict(serve=...)`), named after what they run:
 
-  "fused"  the hand-written CUDA kernels K3 + K4 (`ops.serve`); JAX's
-           "pallas". On the CPU it runs their plain versions: the port's
-           counterpart of interpret mode and its CPU equivalence hook.
-  "gemm"   the cached Predictor through K2 and plain products
-           (`gp.predict_batched`); JAX's "xla".
+  "fused"  the hand-written CUDA kernels K3 + K4 (`ops.serve`), for the
+           correlation families they have an instance of (gaussian,
+           matern52); JAX's "pallas". On the CPU it runs their plain
+           versions: the port's counterpart of interpret mode and its CPU
+           equivalence hook.
+  "gemm"   the cached Predictor through K2 (gaussian) or the plain build
+           and plain products (`gp.predict_batched`); JAX's "xla".
   "auto"   "fused" on a CUDA device for fp32 emulators with m >= 1024,
            else "gemm".
+
+Each tier's call runs inside a `torch.profiler.record_function` span named
+by tier and family (`gp.serve.fused.matern52`), so a trace attributes the
+device's work and idle gaps to the tier that served the request.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from gp_emu_uqsa_torch.dataio import (
 from gp_emu_uqsa_torch.inference import MLEConfig, mle_fit
 from gp_emu_uqsa_torch.kernels import GPParams
 from gp_emu_uqsa_torch.ops.kernel_matrix import MAX_D
+from gp_emu_uqsa_torch.ops.serve import FAMILIES as FUSED_FAMILIES
 from gp_emu_uqsa_torch.ops.serve import serve_meanvar_batched
 
 _MIN_NUGGET = 1e-10
@@ -266,14 +273,15 @@ class Emulator:
     def _use_fused_serve(self, serve: str, m: int, d: int) -> bool:
         """Dispatch gate for the fused K3 + K4 tier (JAX `_use_pallas_serve`).
 
-        Needs the gaussian family and d <= 20. "fused" forces it (plain
-        versions on the CPU); "auto" takes it on a CUDA device for fp32
-        emulators with m >= 1024 (an fp64 emulator stays on the exact fp64
-        gemm tier, which the card runs natively).
+        Needs a family that K3 and K4 have an instance of (gaussian,
+        matern52; matern32 and exponential take the gemm tier) and d <= 20.
+        "fused" forces it (plain versions on the CPU); "auto" takes it on a
+        CUDA device for fp32 emulators with m >= 1024 (an fp64 emulator
+        stays on the exact fp64 gemm tier, which the card runs natively).
         """
         if serve not in SERVE_TIERS:
             raise ValueError(f"unknown serve tier {serve!r}; one of {SERVE_TIERS}")
-        if serve == "gemm" or self.mle_config.family != "gaussian":
+        if serve == "gemm" or self.mle_config.family not in FUSED_FAMILIES:
             return False
         if d > MAX_D:
             return False
@@ -289,10 +297,12 @@ class Emulator:
         The diagonal-variance path takes the fused tier (K3 + K4) or the
         gemm tier as `_use_fused_serve` decides; full_cov=True takes the
         exact factor-based path (`gp.predict`), the only one that builds the
-        (m, m) covariance. quad_precision names the fused tier's K4 body on
-        the card: "high" (default) is 3xTF32 on the tensor cores, within
-        4.7e-5 absolute on the quadratic; "highest" is exact fp32. On the
-        CPU both run the fp32 plain version.
+        (m, m) covariance. All three serve the fit's correlation family.
+        quad_precision names the fused tier's K4 body on the card: "high"
+        (default) is 3xTF32 on the tensor cores, within 4.7e-5 absolute on
+        the quadratic; "highest" is exact fp32. On the CPU both run the fp32
+        plain version. The tier's call runs in a profiler span
+        `gp.serve.<full|fused|gemm>.<family>`.
         """
         if self.state is None:
             raise RuntimeError("emulator not trained: load a checkpoint or "
@@ -300,22 +310,27 @@ class Emulator:
         x, y, h = self.train_view()
         xs, hs = self._prepare_inputs(x_new)
         m, d = xs.shape
-        if full_cov:
-            mean, var = gp.predict(
-                self.state, x, h, xs, hs, full_cov=True,
-                include_nugget=include_nugget, family=self.mle_config.family,
-            )
-        elif self._use_fused_serve(serve, m, d):
-            mean, var = serve_meanvar_batched(
-                self._serving(), x, xs, hs, batch=_FUSED_BATCH,
-                quad_precision=quad_precision, include_nugget=include_nugget,
-            )
-            mean = mean.to(self.dtype)
-            var = var.to(self.dtype)
-        else:
-            mean, var = gp.predict_batched(
-                self._serving(), x, xs, hs, include_nugget=include_nugget,
-                family=self.mle_config.family)
+        family = self.mle_config.family
+        tier = ("full" if full_cov else
+                "fused" if self._use_fused_serve(serve, m, d) else "gemm")
+        with torch.profiler.record_function(f"gp.serve.{tier}.{family}"):
+            if tier == "full":
+                mean, var = gp.predict(
+                    self.state, x, h, xs, hs, full_cov=True,
+                    include_nugget=include_nugget, family=family,
+                )
+            elif tier == "fused":
+                mean, var = serve_meanvar_batched(
+                    self._serving(), x, xs, hs, batch=_FUSED_BATCH,
+                    quad_precision=quad_precision,
+                    include_nugget=include_nugget, family=family,
+                )
+                mean = mean.to(self.dtype)
+                var = var.to(self.dtype)
+            else:
+                mean, var = gp.predict_batched(
+                    self._serving(), x, xs, hs, include_nugget=include_nugget,
+                    family=family)
         if self.fixed_beta is not None:
             hraw = basis_matrix(xs, self.spec)
             mean = mean + hraw @ self._tensor(self.fixed_beta)

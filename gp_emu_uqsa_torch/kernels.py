@@ -181,7 +181,10 @@ def _corr_exponential(d2: torch.Tensor) -> torch.Tensor:
 
 
 # Correlation families on the delta-scaled squared distance d2. The UQSA
-# analytics have closed forms ONLY for "gaussian".
+# analytics have closed forms ONLY for "gaussian". The build kernels K1/K2
+# take only "gaussian"; the serving kernels K3/K4 have a "gaussian" and a
+# "matern52" instance (`ops.serve.FAMILIES`), whose plain versions apply
+# these functions.
 CORR_FAMILIES = {
     "gaussian": _corr_gaussian,
     "matern52": _corr_matern52,
@@ -334,7 +337,11 @@ def corr(x1: torch.Tensor, x2: torch.Tensor, params: GPParams,
 
     On a CUDA device the gaussian family takes kernel K2
     (`ops.kernel_matrix.gaussian_corr_fused`) when both sides span at least
-    256 rows, in fp32, with d <= 20.
+    256 rows, in fp32, with d <= 20. K2 builds the gaussian only: every
+    other family, and the gemm serving tier of a matern52 emulator, takes
+    the plain build (`scaled_sq_dists` through the family's function);
+    serving that never writes c runs K3/K4 (`ops.serve`), which take
+    gaussian and matern52.
     """
     if family == "gaussian" and _fast_cross_ok(x1, x2):
         return _GaussianCrossFast.apply(x1, x2, params.delta)

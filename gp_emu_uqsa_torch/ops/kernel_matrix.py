@@ -51,17 +51,23 @@ _CROSS_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 
 
-def sq_exp_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """exp(-sum_l (a_il - b_jl)^2) for already-scaled rows, shape (m, n).
+def sq_dists_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_l (a_il - b_jl)^2 for already-scaled rows, shape (m, n).
 
-    The kernels' arithmetic in plain PyTorch: differences accumulated in
+    The kernels' distance in plain PyTorch: differences accumulated in
     feature order, exact to the working precision and symmetric when a is b.
     """
     d2 = torch.zeros((a.shape[0], b.shape[0]), dtype=a.dtype, device=a.device)
     for l in range(a.shape[1]):
         t = a[:, l, None] - b[None, :, l]
         d2.addcmul_(t, t)
-    return torch.exp(-d2)
+    return d2
+
+
+def sq_exp_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """exp(-sum_l (a_il - b_jl)^2) for already-scaled rows, shape (m, n):
+    the Gaussian kernels' arithmetic in plain PyTorch (`sq_dists_plain`)."""
+    return torch.exp(-sq_dists_plain(a, b))
 
 
 def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor) -> None:

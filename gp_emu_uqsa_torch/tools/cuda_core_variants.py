@@ -53,7 +53,7 @@ _REBUILD = "      rebuild(b ^ 1);\n"
 _LOAD_W = "      load_w(nxt, b ^ 1);\n"
 _UNROLL = "#pragma unroll 16\n      for (int jj = 0; jj < fp::kChunkJ; ++jj) {"
 _CHUNK = "constexpr int kChunkJ = 64;     // factor columns per stage, one fp32 fold"
-_QEXP = "sc[(cj + jj) * fp::kTileQ] = expf(-d2[jj]);"
+_QEXP = "sc[(cj + jj) * fp::kTileQ] = Family::corr(d2[jj]);"
 _LANES = ("  const int tx = tid % fp::kGroups;\n"
           "  const int ty = tid / fp::kGroups;")
 _C0 = "const float4 c0 = *reinterpret_cast<const float4*>(sc + jj * fp::kTileQ + 4 * ty);"
@@ -77,8 +77,9 @@ QUAD_VARIANTS = {
                  [(_CHUNK, _CHUNK.replace("64;", "16;"))]),
     "chunk 32": ("32 factor columns a stage (and a fold)",
                  [(_CHUNK, _CHUNK.replace("64;", "32;"))]),
-    "__expf": ("the fast exp intrinsic in the rebuild",
-               [(_QEXP, _QEXP.replace("expf", "__expf"))]),
+    "__expf": ("the Gaussian with the fast exp intrinsic in the rebuild",
+               [(_QEXP, _QEXP.replace("Family::corr(d2[jj])",
+                                      "__expf(-d2[jj])"))]),
     "warp 4 x 8": ("a warp holds 4 query groups x 8 factor groups (the "
                    "final sum over factor groups is wrong)",
                    [(_LANES, "  const int tx = tid / 32 % 2 * 8 + tid % 8;\n"
@@ -91,7 +92,7 @@ QUAD_VARIANTS = {
                     (_W1, "const float4 w1 = make_float4(4.f, jj, 6.f, 7.f);")]),
 }
 _BOUNDS = "__global__ void __launch_bounds__(kThreads)\ncorr_matvec_kernel("
-_MEXP = "const float cij = expf(-d2);"
+_MEXP = "const float cij = Family::corr(d2);"
 _TILE = ("constexpr int kThreads = 256;   // queries per block, one a thread\n"
          "constexpr int kChunk = 256;     // training points staged per step")
 MATVEC_VARIANTS = {
@@ -101,8 +102,8 @@ MATVEC_VARIANTS = {
                                                   "(kThreads, 4)"))]),
     "128 threads": ("blocks of 128 queries, 128 staged points",
                     [(_TILE, _TILE.replace("256", "128"))]),
-    "__expf": ("the fast exp intrinsic", [(_MEXP, _MEXP.replace("expf",
-                                                                "__expf"))]),
+    "__expf": ("the Gaussian with the fast exp intrinsic",
+               [(_MEXP, "const float cij = __expf(-d2);")]),
     "no exp": ("c = 1 - d2 (wrong answers)",
                [(_MEXP, "const float cij = 1.f - d2;")]),
 }
@@ -269,10 +270,11 @@ def main(argv=None) -> int:
         return 0
     if "quad" in sections:
         quad_libs = build_variants("corr_quad.cu", QUAD_VARIANTS,
-                                   "corr_quad_fp32")
+                                   "corr_quad_fp32_kernelIN5gpemu8Gaussian")
     if "matvec" in sections:
-        matvec_libs = build_variants("corr_matvec.cu", MATVEC_VARIANTS,
-                                     f"corr_matvec_kernelILi{R}E")
+        matvec_libs = build_variants(
+            "corr_matvec.cu", MATVEC_VARIANTS,
+            f"corr_matvec_kernelILi{R}EN5gpemu8Gaussian")
     # chip_smoke.py phase 2's data: bench.py::_problem's x, seed 0
     x = torch.as_tensor(np.random.default_rng(0).uniform(size=(N, D))
                         .astype(np.float32), device=dev)

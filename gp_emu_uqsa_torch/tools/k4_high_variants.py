@@ -42,12 +42,14 @@ from gp_emu_uqsa_torch.ops import kernel_matrix as km
 from gp_emu_uqsa_torch.ops import serve as sv
 
 N, D, M = 16384, 8, 65536
+# the Gaussian instance of the "high" body, by its mangled name
+GAUSSIAN_HIGH = "corr_quad_tf32x3_kernelIN5gpemu8Gaussian"
 DELTA, NUGGET = 0.8, 1e-4
 
 _PAIR = "constexpr int kPairK = 2;"
 _ONE = "constexpr int kPairK = 1;"
 _FOLD = "constexpr int kFoldStages = 4;"
-_EXP = "const float c = expf(-d2[4 * v + e]);"
+_EXP = "const float c = Family::corr(d2[4 * v + e]);"
 _SPLIT = "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
 # name -> (what it changes, [(text of corr_quad.cu, replacement)]). As
 # built, two k tiles share each rebuilt c stage and so fold every stage; the
@@ -73,7 +75,7 @@ VARIANTS = {
                             "answers)",
                             [(_PAIR, _ONE), (_EXP, "const float c = 0.5f;"),
                              (_FOLD, "constexpr int kFoldStages = 1 << 20;")]),
-    "__expf": ("the fast exp intrinsic in the rebuild",
+    "__expf": ("the Gaussian with the fast exp intrinsic in the rebuild",
                [(_EXP, "const float c = __expf(-d2[4 * v + e]);")]),
     "cvt.rna split": ("the split by cvt.rna.tf32.f32 instead of add-and-mask",
                       [(_SPLIT, 'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;"'
@@ -82,10 +84,12 @@ VARIANTS = {
 
 
 def build_variants(source: str = "corr_quad.cu", variants=None,
-                   kernel: str = "tf32x3", label: str | None = None):
-    """{name: (ctypes library, ptxas lines of `kernel`)} for each variant of
-    `source` (a file of csrc/ or a path; default: this module's VARIANTS of
-    the "high" body), built into `_build/variants/<label or stem>/`."""
+                   kernel: str | tuple[str, ...] = GAUSSIAN_HIGH,
+                   label: str | None = None):
+    """{name: (ctypes library, ptxas lines of `kernel`, a name or a tuple of
+    names)} for each variant of `source` (a file of csrc/ or a path;
+    default: this module's VARIANTS of the "high" body), built into
+    `_build/variants/<label or stem>/`."""
     variants = VARIANTS if variants is None else variants
     path = _build.CSRC / source
     src = path.read_text()
@@ -116,14 +120,20 @@ def build_variants(source: str = "corr_quad.cu", variants=None,
     return libs
 
 
-def ptxas_report(log: str, kernel: str) -> list[str]:
+def ptxas_report(log: str, kernel: str | tuple[str, ...]) -> list[str]:
     """ptxas's register and spill lines for the entry function whose
     (mangled) name contains `kernel`, from nvcc's -Xptxas -v output, and
     every advisory about that function that its wgmma were serialized or
-    its setmaxnreg ignored."""
+    its setmaxnreg ignored; a line saying so when no entry function has
+    that name (a source from before the family template argument). For a
+    tuple of names, each one's lines after the name."""
+    if not isinstance(kernel, str):
+        return [f"{k}: {line}" for k in kernel for line in ptxas_report(log, k)]
     lines = log.splitlines()
-    at = next(i for i, line in enumerate(lines)
-              if "Compiling entry function" in line and kernel in line)
+    at = next((i for i, line in enumerate(lines)
+               if "Compiling entry function" in line and kernel in line), None)
+    if at is None:
+        return [f"no entry function named *{kernel}*"]
     report = [line.split("info    :")[-1].strip()
               for line in lines[at + 1:at + 4]
               if "spill" in line or "registers" in line]

@@ -142,8 +142,14 @@ def test_serve_gate(fp64_pair):
     assert temul._use_fused_serve("fused", m=16, d=3)
     assert not temul._use_fused_serve("gemm", m=1 << 20, d=3)
     assert not temul._use_fused_serve("fused", m=1 << 20, d=21)
-    matern = dataclasses.replace(temul.mle_config, family="matern52")
-    assert not dataclasses.replace(temul, mle_config=matern)._use_fused_serve(
-        "fused", m=1 << 20, d=3)
+    # K3/K4 have a gaussian and a matern52 instance; the other families
+    # stay on the gemm tier
+    for family, fused in (("matern52", True), ("matern32", False),
+                          ("exponential", False)):
+        cfg = dataclasses.replace(temul.mle_config, family=family)
+        emul = dataclasses.replace(temul, mle_config=cfg)
+        assert emul._use_fused_serve("fused", m=1 << 20, d=3) is fused
+        assert not emul._use_fused_serve("fused", m=1 << 20, d=21)
+        assert not emul._use_fused_serve("gemm", m=1 << 20, d=3)
     with pytest.raises(ValueError, match="serve tier"):
         temul._use_fused_serve("pallas", m=16, d=3)

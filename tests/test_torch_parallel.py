@@ -28,8 +28,10 @@ from gp_emu_uqsa_torch.parallel import (
     build_corr_sharded, fit_large, init_multihost, make_mesh,
     predict_sharded, predictor_large, ring_predict, spawn_ranks,
 )
+from gp_emu_uqsa_torch.parallel import ring
+from gp_emu_uqsa_torch.parallel.large_fit import row_block
 from gp_emu_uqsa_torch.parallel.mesh import (
-    gather_rows, padded_rows, shard_rows, traffic,
+    RowBlocks, gather_rows, padded_rows, shard_rows, traffic,
 )
 
 WORLD = 4
@@ -40,6 +42,18 @@ MLE_ITERS = 20
 # (n, block): the rows are dealt in blocks of the panel width, so 512/128
 # is the JAX package's contiguous layout and the others are block-cyclic
 PANEL_CASES = [(300, 64), (512, 128), (300, 16)]
+# the ring's cases: name -> (n, seed, delta, block, m, rows of a pass-2 run
+# (None: ring.SUB_ROWS), ranks). n = 256 pads nothing; n = 150 pads the
+# block-cyclic W to 256 rows and the whole W to 152 columns. Runs of 7 rows
+# straddle the layout's blocks and the padded tail on both layouts; runs of
+# 1 row issue the triangle exactly, (n + 1) / 2n of the dense pairs.
+SERVING = {"aligned": (256, 12, 0.7, 64, 53, None, WORLD),
+           "unaligned": (150, 13, 0.8, 32, 21, None, WORLD),
+           "aligned_runs_of_1": (256, 12, 0.7, 64, 53, 1, WORLD),
+           "aligned_runs_of_16": (256, 12, 0.7, 64, 53, 16, WORLD),
+           "unaligned_runs_of_7": (150, 13, 0.8, 32, 21, 7, WORLD),
+           "aligned_one_rank": (256, 12, 0.7, 64, 53, None, 1),
+           "unaligned_one_rank_runs_of_7": (150, 13, 0.8, 32, 21, 7, 1)}
 # the solves' steps at n = 300: 128 pads to 512, one block a rank (the
 # contiguous layout); 32 pads to 384, three blocks a rank
 SOLVE_BLOCKS = [128, 32]
@@ -183,23 +197,39 @@ def _case_refine(mesh):
             "a32": _np(corr_self(xt, p))}
 
 
+def _serve_ring(pred, xt, xs_t, hs, mesh_data, sub):
+    """ring_predict with runs of `sub` rows in pass 2; (mean, var, the
+    pass-2 counter's share)."""
+    sub_rows = ring.SUB_ROWS
+    ring.SUB_ROWS = sub_rows if sub is None else sub
+    ring.pass2.reset()
+    try:
+        mean, var = ring_predict(pred, xt, xs_t, hs, mesh_data)
+    finally:
+        ring.SUB_ROWS = sub_rows
+    return _np(mean), _np(var), ring.pass2.share
+
+
 def _case_serving(mesh):
     out = {}
-    for name, n, seed, delta, blk, m in (("aligned", 256, 12, 0.7, 64, 53),
-                                         ("unaligned", 150, 13, 0.8, 32, 21)):
+    for name, (n, seed, delta, blk, m, sub, world) in SERVING.items():
         x, y, xs, _, nugget = _fit_problem(n, 3, seed, delta, 1e-4, m=m)
         xt, yt, h, p = _torch_fit_inputs(x, y, delta, nugget)
         xs_t = torch.as_tensor(xs)
         hs = basis_matrix(xs_t, linear_basis(3))
-        st = fit_large(p, xt, yt, h, mesh, block=blk)
-        pred = predictor_large(st, mesh, block=blk)
-        mesh_data = make_mesh({"data": WORLD}, device_type="cpu")
-        mean, var = ring_predict(pred, xt, xs_t, hs, mesh_data)
+        mesh_mr = mesh if world > 1 else None
+        st = fit_large(p, xt, yt, h, mesh_mr, block=blk)
+        pred = predictor_large(st, mesh_mr, block=blk)
+        mesh_data = (make_mesh({"data": WORLD}, device_type="cpu")
+                     if world > 1 else None)
+        mean, var, share = _serve_ring(pred, xt, xs_t, hs, mesh_data, sub)
         pred_l = gp.predictor(gp.fit(p, xt, yt, h))
-        mean_w, var_w = ring_predict(pred_l, xt, xs_t, hs, mesh_data)
-        out[name] = {"w": _np(gather_rows(pred.linv, mesh, "mr", blk)),
-                     "mean": _np(mean), "var": _np(var),
-                     "mean_whole": _np(mean_w), "var_whole": _np(var_w)}
+        mean_w, var_w, share_w = _serve_ring(pred_l, xt, xs_t, hs, mesh_data,
+                                             sub)
+        out[name] = {"w": _np(gather_rows(pred.linv, mesh_mr, "mr", blk)),
+                     "mean": mean, "var": var, "share": share,
+                     "mean_whole": mean_w, "var_whole": var_w,
+                     "share_whole": share_w}
     x, y, xs, delta, nugget = _fit_problem(40, 3, 0, 0.7, 1e-6, m=101)
     xt, yt, h, p = _torch_fit_inputs(x, y, delta, nugget)
     xs_t = torch.as_tensor(xs)
@@ -478,7 +508,20 @@ def test_fit_large_refine_fp32_within_the_jax_bounds(ranks):
     assert err1 < err0 / 3
 
 
-@pytest.mark.parametrize("name", ["aligned", "unaligned"])
+def _layout_share(rows, n, ncols, sub):
+    """The share of the dense pass-2 pairs that runs of `sub` rows issue:
+    rows[r] holds rank r's global row indices, row g < n of W is nonzero up
+    to column g and the padding rows (g >= n) are zero."""
+    issued = 0
+    for index in rows:
+        ext = np.where(index < n, index + 1, 0)
+        for a in range(0, len(index), sub):
+            run = ext[a:a + sub]
+            issued += len(run) * run.max()
+    return issued / (sum(len(index) for index in rows) * ncols)
+
+
+@pytest.mark.parametrize("name", list(SERVING))
 def test_predictor_large_and_ring_predict_match_jax(ranks, name):
     import jax.numpy as jnp
     from gp_emu_uqsa_tpu import gp as jgp
@@ -486,8 +529,7 @@ def test_predictor_large_and_ring_predict_match_jax(ranks, name):
     from gp_emu_uqsa_tpu.basis import linear_basis as jlinear
     from gp_emu_uqsa_tpu.parallel.ring import ring_predict as jring
     got = _case(ranks, "serving")[name]
-    n, seed, delta, m = {"aligned": (256, 12, 0.7, 53),
-                         "unaligned": (150, 13, 0.8, 21)}[name]
+    n, seed, delta, blk, m, sub, world = SERVING[name]
     x, y, xs, _, nugget = _fit_problem(n, 3, seed, delta, 1e-4, m=m)
     xj, yj, hj, pj = _jax_fit_inputs(x, y, delta, nugget)
     pred_j = jgp.predictor(jgp.fit(pj, xj, yj, hj))
@@ -497,7 +539,7 @@ def test_predictor_large_and_ring_predict_match_jax(ranks, name):
     assert not got["w"][:n, n:].any()
     hs = jbasis(jnp.asarray(xs), jlinear(3))
     refs = [jgp.predict_fast(pred_j, xj, jnp.asarray(xs), hs)]
-    if name == "aligned":      # JAX's own test holds its ring to predict_fast
+    if n == 256:       # JAX's own test holds its ring to predict_fast
         refs.append(jring(pred_j, xj, jnp.asarray(xs), hs,
                           _jax_mesh({"data": WORLD})))
     for mean, var in ((got["mean"], got["var"]),
@@ -506,6 +548,26 @@ def test_predictor_large_and_ring_predict_match_jax(ranks, name):
             np.testing.assert_allclose(mean, np.asarray(mean_j), rtol=1e-9)
             np.testing.assert_allclose(var, np.asarray(var_j), rtol=1e-7,
                                        atol=1e-12)
+    # pass 2's issued pairs against the dense product's, from the layouts:
+    # predictor_large's block-cyclic rows of the W padded with identity
+    # rows (one rank: the whole W), and a whole W's contiguous rows
+    # padded with zero rows to p equal shards
+    sub = ring.SUB_ROWS if sub is None else sub
+    s = -(-n // world)
+    whole = [np.arange(r * s, (r + 1) * s) for r in range(world)]
+    assert got["share_whole"] == pytest.approx(
+        _layout_share(whole, n, world * s, sub), rel=1e-12)
+    if world > 1:
+        b = row_block(n, world, blk)
+        n_pad = padded_rows(n, world, b)
+        cyclic = [RowBlocks(n_pad, world, r, b).index for r in range(world)]
+        share = _layout_share(cyclic, n_pad, n_pad, sub)
+    else:
+        share = _layout_share(whole, n, n, sub)
+    assert got["share"] == pytest.approx(share, rel=1e-12)
+    if sub == 1 and n % world == 0:
+        assert got["share"] == got["share_whole"] == pytest.approx(
+            (n + 1) / (2 * n), rel=1e-12)
 
 
 def test_predict_sharded_matches_jax_and_gp_predict(ranks):
